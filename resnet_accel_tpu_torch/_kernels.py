@@ -1,0 +1,179 @@
+"""Build, load and launch the hand-written Hopper kernels.
+
+The CUDA sources under ``csrc/`` expose a plain C interface.  At the first
+CUDA use they are compiled with ``nvcc`` for ``sm_90a`` into
+``_build/libkernels.so`` and loaded with ``ctypes``; nothing is built or
+loaded when the package is imported, so the CPU path needs neither
+``nvcc`` nor a card.  The build is keyed by a hash of the sources and the
+flags and is redone when either changes.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code and adds
+one to the kernel's launch count.  The counts let a run show that its main
+path really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, List, Optional
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
+
+# No --use_fast_math, and -fmad=false so that no a*b+c in the epilogues is
+# contracted into an FMA: the golden rounds every f32 operation on its own.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: its C entry point and its launch count."""
+
+    name: str
+    symbol: str
+    source: str            # path in the repo
+    replaces: str          # the TPU kernel it replaces, file:line
+    argtypes: List
+    launches: int = 0
+
+
+KERNELS: Dict[str, Kernel] = {
+    k.name: k for k in (
+        Kernel("stem_fused", "stem_fused_launch",
+               "resnet_accel_tpu_torch/csrc/stem_fused.cu",
+               "resnet_accel_tpu/ops/stem_fused.py:115",
+               [_P] * 5 + [_I] * 5 + [_F, _P]),
+        Kernel("conv_int8", "conv_int8_launch",
+               "resnet_accel_tpu_torch/csrc/conv_int8.cu",
+               "resnet_accel_tpu/ops/conv_bm.py:419",
+               [_P] * 6 + [_I] * 11 + [_F] * 3 + [_P]),
+        Kernel("matmul_int8", "matmul_int8_launch",
+               "resnet_accel_tpu_torch/csrc/matmul_int8.cu",
+               "resnet_accel_tpu/ops/matmul_int8.py:74",
+               [_P] * 5 + [_I] * 5 + [_P]),
+    )
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _sources() -> List[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/*.cu`` into ``_build/libkernels.so`` unless a build
+    of the same sources and flags is already there; returns its path."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    digest = h.hexdigest()
+    stamp = LIB_PATH + ".sha256"
+    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
+        with open(stamp) as f:
+            if f.read().strip() == digest:
+                return LIB_PATH
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, LIB_PATH)
+    with open(stamp, "w") as f:
+        f.write(digest + "\n")
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for k in KERNELS.values():
+                fn = getattr(handle, k.symbol)
+                fn.argtypes = k.argtypes
+                fn.restype = ctypes.c_int
+            handle.kernels_error_string.argtypes = [ctypes.c_int]
+            handle.kernels_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raise if the
+    launch was refused.  ``args`` are the C arguments before the stream."""
+    k = KERNELS[name]
+    handle = lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(handle, k.symbol)(*args, stream)
+    if err != 0:
+        msg = handle.kernels_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    k.launches += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+          device: torch.device,
+          memory_format: torch.memory_format = torch.contiguous_format
+          ) -> None:
+    """Raise unless ``t`` is what a kernel takes: device, dtype, shape and
+    a dense layout in ``memory_format``."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous(memory_format=memory_format):
+        raise ValueError(f"{name}: not contiguous in {memory_format}")

@@ -1,0 +1,33 @@
+// Shared int8 epilogues of the three kernels, written to the numpy golden
+// (resnet_accel_tpu/golden/ops.py): every float step is one IEEE f32
+// operation with its own rounding (the _rn intrinsics, which nvcc never
+// contracts into an FMA), ties round half to even (rintf), and results
+// saturate to [-128, 127].
+#pragma once
+
+#include <cstdint>
+
+// clip(rint(float32(acc) * f), -128, 127) -- golden requantize.
+__device__ __forceinline__ int requant_i8(int acc, float f) {
+  float q = rintf(__fmul_rn(__int2float_rn(acc), f));
+  return static_cast<int>(fminf(fmaxf(q, -128.f), 127.f));
+}
+
+// max(clip(rint((m*s_main + r*s_res) / s_out), -128, 127), 0) -- golden
+// residual join of a basic block, with its post-add ReLU.
+__device__ __forceinline__ int residual_join(int m, int r, float s_main,
+                                             float s_res, float s_out) {
+  float s = __fadd_rn(__fmul_rn(__int2float_rn(m), s_main),
+                      __fmul_rn(__int2float_rn(r), s_res));
+  float q = rintf(__fdiv_rn(s, s_out));
+  q = fminf(fmaxf(q, -128.f), 127.f);
+  return static_cast<int>(fmaxf(q, 0.f));
+}
+
+// Four int8 values, lowest address in the lowest byte (the __dp4a order).
+__device__ __forceinline__ int pack4(int a, int b, int c, int d) {
+  return static_cast<int>((static_cast<uint32_t>(a) & 0xffu) |
+                          ((static_cast<uint32_t>(b) & 0xffu) << 8) |
+                          ((static_cast<uint32_t>(c) & 0xffu) << 16) |
+                          ((static_cast<uint32_t>(d) & 0xffu) << 24));
+}

@@ -1,0 +1,486 @@
+"""ResNet-18 INT8 inference in PyTorch.
+
+Counterpart of ``resnet_accel_tpu/models/resnet18.py`` for basic-block
+models (ResNet-18's plan and narrower test plans):
+
+- ``init_resnet18_fp32`` draws the same seeded fp32 parameters as the JAX
+  package (a numpy copy, so both packages build identical weights);
+- ``quantize_resnet18`` folds BatchNorm, quantizes weights per channel and
+  calibrates activation scales with a float32 PyTorch forward on the CPU;
+- ``ResNet18Int8`` holds the quantized model as numpy arrays, with
+  ``.npz`` save and load, and ``from_reference`` carries the JAX package's
+  quantized model across, so both packages compute with the same model;
+- ``ResNet18Int8Module`` is the forward (fp32 NCHW images -> fp32 logits),
+  one route per layer:
+
+      stem_conv_pool (K1) -> per block: conv2d_int8 (K2) for c1, for the
+      downsample and for c2 with the residual join fused in
+      -> avgpool_global_int8 -> matmul_int8 (K3) -> x fc_deq
+
+  On CUDA tensors every step above marked K runs its hand-written kernel;
+  on CPU tensors the plain PyTorch versions run.  ``forward_plain`` runs
+  the plain versions on any device, the reference the kernels are checked
+  against on the card.
+
+The numerical specification is the numpy golden ``forward_golden`` of the
+JAX package's module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from resnet_accel_tpu_torch.ops import (
+    avgpool_global_int8,
+    conv2d_int8,
+    conv2d_int8_plain,
+    matmul_int8,
+    matmul_int8_plain,
+    pack_weight,
+    quantize_input,
+    requant_factors,
+    stem_conv_pool,
+    stem_conv_pool_plain,
+)
+from resnet_accel_tpu_torch.quant import (bias_to_int32,
+                                          quantize_symmetric_per_channel)
+from resnet_accel_tpu_torch.runtime.backend import resolve_device
+
+#: Stage plan: (out_channels, blocks, first_stride) of ResNet-18.
+STAGES = [(64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)]
+BN_EPS = 1e-5
+
+
+# ==========================================================================
+# FP32 parameters and BatchNorm folding
+# ==========================================================================
+
+def init_resnet18_fp32(
+    seed: int = 0, num_classes: int = 1000, small_input: bool = False,
+    stages=None,
+) -> Dict[str, np.ndarray]:
+    """He-init fp32 parameters in torchvision's flat naming scheme, drawn
+    from ``numpy.random.default_rng(seed)`` in the JAX package's order."""
+    stages = STAGES if stages is None else stages
+    rng = np.random.default_rng(seed)
+    p: Dict[str, np.ndarray] = {}
+
+    def conv(name, o, i, k):
+        fan_in = i * k * k
+        p[f"{name}.weight"] = (
+            rng.normal(0, np.sqrt(2.0 / fan_in), (o, i, k, k))
+        ).astype(np.float32)
+
+    def bn(name, c):
+        p[f"{name}.weight"] = np.ones(c, np.float32)
+        p[f"{name}.bias"] = np.zeros(c, np.float32)
+        p[f"{name}.running_mean"] = (
+            rng.normal(0, 0.1, c).astype(np.float32))
+        p[f"{name}.running_var"] = (
+            rng.uniform(0.5, 1.5, c).astype(np.float32))
+
+    conv("conv1", 64, 3, 3 if small_input else 7)
+    bn("bn1", 64)
+    in_c = 64
+    for si, (out_c, blocks, stride) in enumerate(stages, start=1):
+        for b in range(blocks):
+            base = f"layer{si}.{b}"
+            c_in = in_c if b == 0 else out_c
+            conv(f"{base}.conv1", out_c, c_in, 3)
+            bn(f"{base}.bn1", out_c)
+            conv(f"{base}.conv2", out_c, out_c, 3)
+            bn(f"{base}.bn2", out_c)
+            if b == 0 and (stride != 1 or c_in != out_c):
+                conv(f"{base}.downsample.0", out_c, c_in, 1)
+                bn(f"{base}.downsample.1", out_c)
+        in_c = out_c
+    p["fc.weight"] = (
+        rng.normal(0, 0.01, (num_classes, in_c)).astype(np.float32))
+    p["fc.bias"] = np.zeros(num_classes, np.float32)
+    return p
+
+
+def fold_bn(
+    conv_w: np.ndarray, bn_gamma, bn_beta, bn_mean, bn_var,
+    eps: float = BN_EPS,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold inference-mode BatchNorm into the preceding conv:
+    w' = w * gamma/sqrt(var+eps) per out channel, b' = beta - mean*that."""
+    scale = bn_gamma / np.sqrt(bn_var + eps)
+    w = conv_w * scale[:, None, None, None]
+    b = bn_beta - bn_mean * scale
+    return w.astype(np.float32), b.astype(np.float32)
+
+
+def fold_all_bn(params_fp32: Dict[str, np.ndarray],
+                stages=None) -> Dict[str, np.ndarray]:
+    """Fold every BatchNorm of a flat torchvision-style dict into its conv:
+    {conv: w', conv + '.bias': b'}, plus the fc passthrough."""
+    stages = STAGES if stages is None else stages
+    folded: Dict[str, np.ndarray] = {}
+
+    def fold(conv_name, bn_name):
+        folded[conv_name], folded[conv_name + ".bias"] = fold_bn(
+            params_fp32[f"{conv_name}.weight"],
+            params_fp32[f"{bn_name}.weight"],
+            params_fp32[f"{bn_name}.bias"],
+            params_fp32[f"{bn_name}.running_mean"],
+            params_fp32[f"{bn_name}.running_var"])
+
+    fold("conv1", "bn1")
+    for si, (_, blocks, _) in enumerate(stages, start=1):
+        for b in range(blocks):
+            base = f"layer{si}.{b}"
+            fold(f"{base}.conv1", f"{base}.bn1")
+            fold(f"{base}.conv2", f"{base}.bn2")
+            if f"{base}.downsample.0.weight" in params_fp32:
+                fold(f"{base}.downsample.0", f"{base}.downsample.1")
+    folded["fc.weight"] = params_fp32["fc.weight"]
+    folded["fc.bias"] = params_fp32["fc.bias"]
+    return folded
+
+
+# ==========================================================================
+# Quantized model (numpy)
+# ==========================================================================
+
+@dataclasses.dataclass
+class QConv:
+    """One fused conv(-BN)(-ReLU)(-requant) layer."""
+
+    w2d: np.ndarray          # [O, I*K*K] int8, flattened OIHW
+    bias: np.ndarray         # [O] int32, accumulator domain
+    factors: np.ndarray      # [O] float32 requant factors
+    in_channels: int
+    kernel: int
+    stride: int
+    padding: int
+    relu: bool
+
+
+@dataclasses.dataclass
+class QBlock:
+    conv1: QConv
+    conv2: QConv
+    downsample: Optional[QConv]
+    s_in: float
+    s_main: float
+    s_res: float             # scale of the residual path (s_in or s_ds)
+    s_out: float
+
+    def named_convs(self, i: int):
+        yield f"b{i}.c1", self.conv1
+        yield f"b{i}.c2", self.conv2
+        if self.downsample is not None:
+            yield f"b{i}.ds", self.downsample
+
+
+_QCONV_ARRAYS = ("w2d", "bias", "factors")
+_QCONV_INTS = ("in_channels", "kernel", "stride", "padding", "relu")
+_QBLOCK_SCALES = ("s_in", "s_main", "s_res", "s_out")
+
+
+@dataclasses.dataclass
+class ResNet18Int8:
+    stem: QConv
+    blocks: List[QBlock]
+    fc_w: np.ndarray         # [num_classes, 512] int8
+    fc_b: np.ndarray         # [num_classes] int32
+    fc_deq: np.ndarray       # [num_classes] float32 dequant of the fc acc
+    s_input: float
+    small_input: bool
+    num_classes: int
+
+    def named_convs(self):
+        yield "stem", self.stem
+        for i, blk in enumerate(self.blocks):
+            yield from blk.named_convs(i)
+
+    def save_npz(self, path: str) -> None:
+        arrays = {"fc_w": self.fc_w, "fc_b": self.fc_b,
+                  "fc_deq": self.fc_deq,
+                  "meta": np.array([self.s_input]),
+                  "meta_int": np.array([int(self.small_input),
+                                        self.num_classes,
+                                        len(self.blocks)])}
+        for prefix, qc in self.named_convs():
+            for k in _QCONV_ARRAYS:
+                arrays[f"{prefix}.{k}"] = getattr(qc, k)
+            arrays[f"{prefix}.geom"] = np.array(
+                [int(getattr(qc, k)) for k in _QCONV_INTS])
+        for i, blk in enumerate(self.blocks):
+            arrays[f"b{i}.scales"] = np.array(
+                [getattr(blk, k) for k in _QBLOCK_SCALES], np.float64)
+        np.savez(path, **arrays)
+
+    @classmethod
+    def load_npz(cls, path: str) -> "ResNet18Int8":
+        with np.load(path, allow_pickle=False) as z:
+            def qconv(prefix):
+                geom = [int(v) for v in z[f"{prefix}.geom"]]
+                return QConv(**{k: z[f"{prefix}.{k}"]
+                                for k in _QCONV_ARRAYS},
+                             **dict(zip(_QCONV_INTS[:-1], geom[:-1])),
+                             relu=bool(geom[-1]))
+
+            small_input, num_classes, n_blocks = (
+                int(v) for v in z["meta_int"])
+            blocks = [QBlock(
+                conv1=qconv(f"b{i}.c1"), conv2=qconv(f"b{i}.c2"),
+                downsample=(qconv(f"b{i}.ds")
+                            if f"b{i}.ds.geom" in z.files else None),
+                **{k: float(v) for k, v in zip(_QBLOCK_SCALES,
+                                               z[f"b{i}.scales"])})
+                for i in range(n_blocks)]
+            return cls(stem=qconv("stem"), blocks=blocks,
+                       fc_w=z["fc_w"], fc_b=z["fc_b"], fc_deq=z["fc_deq"],
+                       s_input=float(z["meta"][0]),
+                       small_input=bool(small_input),
+                       num_classes=num_classes)
+
+
+def from_reference(model) -> ResNet18Int8:
+    """Carry the JAX package's quantized ``ResNet18Int8`` across.
+
+    Reads numpy attributes only (no import of the JAX module), so both
+    packages compute with the very same quantized model.  Bottleneck
+    blocks and block-sparse layers are not ported yet and are refused.
+    """
+    def qconv(qc) -> QConv:
+        if getattr(qc, "bsr", None) is not None:
+            raise ValueError("block-sparse (BSR) layers are not ported")
+        return QConv(w2d=np.asarray(qc.w2d, np.int8),
+                     bias=np.asarray(qc.bias, np.int32),
+                     factors=np.asarray(qc.factors, np.float32),
+                     in_channels=int(qc.in_channels),
+                     kernel=int(qc.kernel), stride=int(qc.stride),
+                     padding=int(qc.padding), relu=bool(qc.relu))
+
+    blocks = []
+    for blk in model.blocks:
+        if hasattr(blk, "conv3"):
+            raise ValueError("bottleneck blocks are not ported")
+        blocks.append(QBlock(
+            conv1=qconv(blk.conv1), conv2=qconv(blk.conv2),
+            downsample=(qconv(blk.downsample)
+                        if blk.downsample is not None else None),
+            s_in=float(blk.s_in), s_main=float(blk.s_main),
+            s_res=float(blk.s_res), s_out=float(blk.s_out)))
+    return ResNet18Int8(
+        stem=qconv(model.stem), blocks=blocks,
+        fc_w=np.asarray(model.fc_w, np.int8),
+        fc_b=np.asarray(model.fc_b, np.int32),
+        fc_deq=np.asarray(model.fc_deq, np.float32),
+        s_input=float(model.s_input), small_input=bool(model.small_input),
+        num_classes=int(model.num_classes))
+
+
+# ==========================================================================
+# Quantization (PTQ with calibration)
+# ==========================================================================
+
+def _float_forward_taps(params: Dict[str, np.ndarray], x: torch.Tensor,
+                        small_input: bool, stages=None):
+    """Inference-mode fp32 forward (BN folded) returning activation taps,
+    for calibration only."""
+    stages = STAGES if stages is None else stages
+    taps: Dict[str, torch.Tensor] = {}
+
+    def conv(name, a, stride, padding):
+        w = torch.from_numpy(params[name])
+        b = torch.from_numpy(params[name + ".bias"])
+        return F.conv2d(a, w, stride=stride, padding=padding) \
+            + b[None, :, None, None]
+
+    a = conv("conv1", x, 1, 1) if small_input else conv("conv1", x, 2, 3)
+    a = a.clamp_min(0)
+    taps["stem"] = a
+    if not small_input:
+        a = F.max_pool2d(a, 3, 2, padding=1)
+    bi = 0
+    for si, (_, blocks, stride) in enumerate(stages, start=1):
+        for b in range(blocks):
+            base = f"layer{si}.{b}"
+            st = stride if b == 0 else 1
+            y = conv(f"{base}.conv1", a, st, 1).clamp_min(0)
+            taps[f"b{bi}.c1"] = y
+            y = conv(f"{base}.conv2", y, 1, 1)
+            taps[f"b{bi}.c2"] = y
+            if f"{base}.downsample.0" in params:
+                r = conv(f"{base}.downsample.0", a, st, 0)
+                taps[f"b{bi}.ds"] = r
+            else:
+                r = a
+            a = (y + r).clamp_min(0)
+            taps[f"b{bi}.out"] = a
+            bi += 1
+    a = a.mean(dim=(2, 3))
+    logits = a @ torch.from_numpy(params["fc.weight"]).t() \
+        + torch.from_numpy(params["fc.bias"])
+    taps["fc_in"] = a
+    return logits, taps
+
+
+def quantize_resnet18(
+    params_fp32: Dict[str, np.ndarray],
+    calib_x: np.ndarray,
+    num_classes: int = 1000,
+    small_input: bool = False,
+    stages=None,
+) -> ResNet18Int8:
+    """Fold BN, quantize weights per channel to int8 and calibrate the
+    activation scales (abs-max over ``calib_x``, fp32 NCHW), as the JAX
+    package does.  Calibration runs on the CPU."""
+    stages = STAGES if stages is None else stages
+    folded = fold_all_bn(params_fp32, stages=stages)
+
+    calib_x = np.asarray(calib_x, np.float32)
+    with torch.inference_mode():
+        _, taps = _float_forward_taps(folded, torch.from_numpy(calib_x),
+                                      small_input, stages=stages)
+        maxima = {k: float(v.abs().max()) for k, v in taps.items()}
+
+    def scale_from_max(m):
+        return max(float(m) / 127.0, 1e-12)
+
+    s_input = scale_from_max(np.abs(calib_x).max())
+    s = {k: scale_from_max(m) for k, m in maxima.items()}
+
+    def qconv(name, s_in, s_out, relu, in_c, k, stride, pad):
+        w_q, w_s = quantize_symmetric_per_channel(folded[name], axis=0)
+        return QConv(
+            w2d=w_q.reshape(w_q.shape[0], -1),
+            bias=bias_to_int32(folded[name + ".bias"], s_in, w_s),
+            factors=requant_factors(s_in, w_s, s_out),
+            in_channels=in_c, kernel=k, stride=stride, padding=pad,
+            relu=relu)
+
+    stem_k, stem_s, stem_p = (3, 1, 1) if small_input else (7, 2, 3)
+    stem = qconv("conv1", s_input, s["stem"], True, 3, stem_k, stem_s,
+                 stem_p)
+    blocks: List[QBlock] = []
+    bi, in_c, s_prev = 0, 64, s["stem"]
+    for si, (out_c, nblocks, stride) in enumerate(stages, start=1):
+        for b in range(nblocks):
+            base = f"layer{si}.{b}"
+            st = stride if b == 0 else 1
+            c_in = in_c if b == 0 else out_c
+            ds, s_res = None, s_prev
+            if f"{base}.downsample.0" in folded:
+                ds = qconv(f"{base}.downsample.0", s_prev, s[f"b{bi}.ds"],
+                           False, c_in, 1, st, 0)
+                s_res = s[f"b{bi}.ds"]
+            blocks.append(QBlock(
+                conv1=qconv(f"{base}.conv1", s_prev, s[f"b{bi}.c1"], True,
+                            c_in, 3, st, 1),
+                conv2=qconv(f"{base}.conv2", s[f"b{bi}.c1"], s[f"b{bi}.c2"],
+                            False, out_c, 3, 1, 1),
+                downsample=ds, s_in=s_prev, s_main=s[f"b{bi}.c2"],
+                s_res=s_res, s_out=s[f"b{bi}.out"]))
+            s_prev = s[f"b{bi}.out"]
+            bi += 1
+        in_c = out_c
+
+    fc_q, fc_s = quantize_symmetric_per_channel(folded["fc.weight"], axis=0)
+    return ResNet18Int8(
+        stem=stem, blocks=blocks, fc_w=fc_q,
+        fc_b=bias_to_int32(folded["fc.bias"], s_prev, fc_s),
+        fc_deq=(np.float32(s_prev) * fc_s).astype(np.float32),
+        s_input=s_input, small_input=small_input, num_classes=num_classes)
+
+
+# ==========================================================================
+# Forward
+# ==========================================================================
+
+class Int8Conv(nn.Module):
+    """One quantized conv's tensors on the device, with its geometry."""
+
+    def __init__(self, qc: QConv, weight: torch.Tensor,
+                 device: torch.device):
+        super().__init__()
+        self.stride, self.padding, self.relu = qc.stride, qc.padding, qc.relu
+        self.register_buffer("weight", weight)
+        self.register_buffer("bias", torch.from_numpy(
+            np.asarray(qc.bias, np.int32)).to(device))
+        self.register_buffer("factors", torch.from_numpy(
+            np.asarray(qc.factors, np.float32)).to(device))
+
+    def forward(self, x, conv=conv2d_int8, residual=None, res_scales=None):
+        return conv(x, self.weight, self.bias, self.factors,
+                    stride=self.stride, padding=self.padding, relu=self.relu,
+                    residual=residual, res_scales=res_scales)
+
+
+class ResNet18Int8Module(nn.Module):
+    """The quantized ResNet-18 forward on ``device``: fp32 NCHW images ->
+    fp32 logits, bit-exact with the golden ``forward_golden``.
+
+    Weights are uploaded once, here, in the layouts the kernels read: the
+    trunk's conv weights channels-last, the fc weight as [512, classes].
+    """
+
+    def __init__(self, model: ResNet18Int8, device):
+        super().__init__()
+        device = resolve_device(device)
+        self.s_input = float(model.s_input)
+        self.small_input = bool(model.small_input)
+        stem = model.stem
+        if self.small_input:
+            # The 3x3 CIFAR stem runs through the conv kernel, which takes
+            # channel counts divisible by 4: a zero fourth input channel
+            # (and a zero fourth weight channel) changes no sum.
+            w = np.zeros((stem.w2d.shape[0], 4, 3, 3), np.int8)
+            w[:, :3] = stem.w2d.reshape(-1, 3, 3, 3)
+            stem_w = pack_weight(w.reshape(w.shape[0], -1), 4, 3, device)
+        else:
+            stem_w = torch.from_numpy(np.ascontiguousarray(
+                stem.w2d.reshape(-1, stem.in_channels, 7, 7))).to(device)
+        self.stem = Int8Conv(stem, stem_w, device)
+        self.blocks = nn.ModuleList()
+        self.res_scales: List[Tuple[float, float, float]] = []
+        for i, blk in enumerate(model.blocks):
+            convs = nn.ModuleDict()
+            for prefix, qc in blk.named_convs(i):
+                convs[prefix.split(".")[1]] = Int8Conv(
+                    qc, pack_weight(qc.w2d, qc.in_channels, qc.kernel,
+                                    device), device)
+            self.blocks.append(convs)
+            self.res_scales.append((blk.s_main, blk.s_res, blk.s_out))
+        self.register_buffer("fc_w", torch.from_numpy(
+            np.ascontiguousarray(model.fc_w.T)).to(device))
+        self.register_buffer("fc_b", torch.from_numpy(
+            np.asarray(model.fc_b, np.int32)).to(device))
+        self.register_buffer("fc_deq", torch.from_numpy(
+            np.asarray(model.fc_deq, np.float32)).to(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernels on CUDA tensors, the plain versions on CPU ones."""
+        return self._forward(x, stem_conv_pool, conv2d_int8, matmul_int8)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch versions of every kernel, on any device."""
+        return self._forward(x, stem_conv_pool_plain, conv2d_int8_plain,
+                             matmul_int8_plain)
+
+    def _forward(self, x, stem, conv, matmul):
+        if self.small_input:
+            a = F.pad(quantize_input(x, self.s_input), (0, 0, 0, 0, 0, 1))
+            a = self.stem(a.contiguous(memory_format=torch.channels_last),
+                          conv)
+        else:
+            a = stem(x, self.stem.weight, self.stem.bias, self.stem.factors,
+                     self.s_input)
+        for convs, rs in zip(self.blocks, self.res_scales):
+            y = convs["c1"](a, conv)
+            r = convs["ds"](a, conv) if "ds" in convs else a
+            a = convs["c2"](y, conv, residual=r, res_scales=rs)
+        a = avgpool_global_int8(a)
+        acc = matmul(a, self.fc_w, bias=self.fc_b)
+        return acc.to(torch.float32) * self.fc_deq

@@ -1,0 +1,46 @@
+"""The compute path: the three kernel wrappers with their plain versions,
+and the int8 epilogues and pools they share."""
+
+from resnet_accel_tpu_torch.ops.conv import (
+    conv2d_int8,
+    conv2d_int8_plain,
+    im2col_nchw,
+    pack_weight,
+)
+from resnet_accel_tpu_torch.ops.epilogue import (
+    add_residual,
+    exact_inv_out_scale,
+    quantize_input,
+    requant_factors,
+    requantize,
+)
+from resnet_accel_tpu_torch.ops.matmul_int8 import (
+    matmul_int8,
+    matmul_int8_plain,
+)
+from resnet_accel_tpu_torch.ops.pooling import (
+    avgpool_global_int8,
+    maxpool2d_int8,
+)
+from resnet_accel_tpu_torch.ops.stem_fused import (
+    stem_conv_pool,
+    stem_conv_pool_plain,
+)
+
+__all__ = [
+    "add_residual",
+    "avgpool_global_int8",
+    "conv2d_int8",
+    "conv2d_int8_plain",
+    "exact_inv_out_scale",
+    "im2col_nchw",
+    "matmul_int8",
+    "matmul_int8_plain",
+    "maxpool2d_int8",
+    "pack_weight",
+    "quantize_input",
+    "requant_factors",
+    "requantize",
+    "stem_conv_pool",
+    "stem_conv_pool_plain",
+]

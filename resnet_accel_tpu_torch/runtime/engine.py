@@ -1,0 +1,122 @@
+"""Inference engine: load a quantized ResNet-18 once, serve batches.
+
+Counterpart of ``resnet_accel_tpu/runtime/engine.py`` (``run_inference``,
+``benchmark``, ``preprocess_imagenet``, ``softmax``, ``top_k``) on an
+explicit PyTorch device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from resnet_accel_tpu_torch.models.resnet18 import (ResNet18Int8,
+                                                    ResNet18Int8Module)
+from resnet_accel_tpu_torch.runtime.backend import resolve_device
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def preprocess_imagenet(images_u8: np.ndarray) -> np.ndarray:
+    """[N, H, W, 3] uint8 -> normalized [N, 3, H, W] float32."""
+    x = images_u8.astype(np.float32) / 255.0
+    x = (x - IMAGENET_MEAN) / IMAGENET_STD
+    return np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+
+
+def softmax(logits: np.ndarray) -> np.ndarray:
+    z = logits - logits.max(axis=-1, keepdims=True)
+    e = np.exp(z)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def top_k(logits: np.ndarray, k: int = 5) -> List[List[Tuple[int, float]]]:
+    """Per-sample [(class, prob)], best first."""
+    probs = softmax(logits)
+    idx = np.argsort(-probs, axis=-1)[:, :k]
+    return [[(int(i), float(probs[n, i])) for i in idx[n]]
+            for n in range(logits.shape[0])]
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    logits: np.ndarray
+    predictions: np.ndarray
+    top5: List[List[Tuple[int, float]]]
+    latency_s: float
+
+    @property
+    def images_per_s(self) -> float:
+        n = self.logits.shape[0]
+        return n / self.latency_s if self.latency_s else 0.0
+
+
+@dataclasses.dataclass
+class BenchmarkResult:
+    """Median time of one forward on ``device`` (CUDA events on a card,
+    the host clock on the CPU)."""
+
+    device: str
+    batch: int
+    latency_s: float
+
+    @property
+    def images_per_s(self) -> float:
+        return self.batch / self.latency_s
+
+
+class InferenceEngine:
+    """Upload a quantized ``ResNet18Int8`` to ``device`` once and run
+    batched int8 inference on it many times."""
+
+    def __init__(self, model: ResNet18Int8, device="cuda"):
+        self.device = resolve_device(device)
+        self.module = ResNet18Int8Module(model, self.device).eval()
+
+    def _input(self, x: np.ndarray) -> torch.Tensor:
+        if x.ndim != 4:
+            raise ValueError(f"expected NCHW input, got shape {x.shape}")
+        return torch.from_numpy(
+            np.ascontiguousarray(x, np.float32)).to(self.device)
+
+    def run_inference(self, x: np.ndarray, k: int = 5) -> InferenceResult:
+        """Forward one batch of fp32 NCHW images; latency includes the
+        copies to and from the device."""
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits = self.module(self._input(x)).cpu().numpy()
+        dt = time.perf_counter() - t0
+        return InferenceResult(
+            logits=logits, predictions=logits.argmax(axis=-1),
+            top5=top_k(logits, k=min(k, logits.shape[-1])), latency_s=dt)
+
+    def benchmark(self, x: np.ndarray, iters: int = 10) -> BenchmarkResult:
+        """Median steady-state time of one forward, input already on the
+        device, after one warm-up forward."""
+        with torch.inference_mode():
+            xt = self._input(x)
+            self.module(xt)
+            times = []
+            for _ in range(iters):
+                if self.device.type == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    self.module(xt)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end) / 1e3)
+                else:
+                    t0 = time.perf_counter()
+                    self.module(xt)
+                    times.append(time.perf_counter() - t0)
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        return BenchmarkResult(device=name, batch=x.shape[0],
+                               latency_s=statistics.median(times))

@@ -1,0 +1,107 @@
+"""PyTorch port: each hand-written CUDA kernel against its plain PyTorch
+version on the card, bit for bit (tolerance 0).
+
+The kernels have no CPU mode, so every test here needs a card and skips
+without one.  This file imports no JAX, so it also runs on a machine that
+has PyTorch and a card but no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from resnet_accel_tpu_torch import _kernels, ops
+
+
+def _i8(rng, shape):
+    return rng.integers(-128, 128, shape).astype(np.int8)
+
+
+@pytest.fixture
+def cuda():
+    """The card; decided here, inside the test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _t(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 224, 224), (3, 37, 50), (1, 16, 16)])
+def test_stem(cuda, N, H, W):
+    rng = np.random.default_rng(H)
+    x = rng.normal(0, 1, (N, 3, H, W)).astype(np.float32)
+    w = _i8(rng, (64, 3, 7, 7))
+    bias = rng.integers(-5000, 5000, 64).astype(np.int32)
+    f = rng.uniform(0.001, 0.01, 64).astype(np.float32)
+    args = (_t(x, cuda), _t(w, cuda), _t(bias, cuda), _t(f, cuda),
+            float(np.abs(x).max() / 127.0))
+    before = _kernels.launch_counts()["stem_fused"]
+    got = ops.stem_conv_pool(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["stem_fused"] == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ops.stem_conv_pool_plain(*args))
+
+
+@pytest.mark.parametrize("C,O,H,k,stride", [
+    (64, 64, 14, 3, 1), (64, 128, 15, 3, 2), (64, 128, 14, 1, 2),
+    (12, 20, 9, 3, 1), (256, 512, 7, 3, 2)])
+@pytest.mark.parametrize("join", [False, True])
+def test_conv(cuda, C, O, H, k, stride, join):
+    rng = np.random.default_rng(C + O + k)
+    cl = torch.channels_last
+    x = _t(_i8(rng, (2, C, H, H)), cuda).contiguous(memory_format=cl)
+    w = ops.pack_weight(_i8(rng, (O, C * k * k)), C, k, cuda)
+    bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
+    # acc has std ~ 74 * 74 * sqrt(C*k*k); scale it to std ~ 60
+    f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(C * k * k)).astype(
+        np.float32), cuda)
+    kw = dict(stride=stride, padding=k // 2, relu=not join)
+    if join:
+        Ho = (H + 2 * (k // 2) - k) // stride + 1
+        r = _t(_i8(rng, (2, O, Ho, Ho)), cuda).contiguous(memory_format=cl)
+        kw.update(residual=r, res_scales=(0.0213, 0.0172, 0.0311))
+    got = ops.conv2d_int8(x, w, bias, f, **kw)
+    torch.cuda.synchronize()
+    want = ops.conv2d_int8_plain(x, w, bias, f, **kw)
+    assert torch.equal(got, want)
+    # the requant spans the int8 range, so the check is not on clipped 0s
+    assert int(want.max()) - int(want.min()) > 100
+
+
+def test_conv_refuses_nchw_input(cuda):
+    x = torch.zeros(1, 4, 5, 5, dtype=torch.int8, device=cuda)
+    w = ops.pack_weight(np.zeros((4, 36), np.int8), 4, 3, cuda)
+    v = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.conv2d_int8(x, w, v, v.float(), padding=1)
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 512, 1000), (5, 37, 19),
+                                   (70, 129, 65)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_matmul(cuda, M, K, N, requant):
+    rng = np.random.default_rng(M + K)
+    a, b = _t(_i8(rng, (M, K)), cuda), _t(_i8(rng, (K, N)), cuda)
+    bias = _t(rng.integers(-2000, 2000, N).astype(np.int32), cuda)
+    f = (_t(rng.uniform(1e-5, 1e-3, N).astype(np.float32), cuda)
+         if requant else None)
+    got = ops.matmul_int8(a, b, bias=bias, factors=f, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(
+        got, ops.matmul_int8_plain(a, b, bias=bias, factors=f, relu=True))
+
+
+def test_divide_by_device_scalar_is_ieee(cuda):
+    """The plain versions divide by a float32 tensor on the device, which
+    must be the IEEE quotient (not a multiply by the reciprocal)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 50, 1 << 22).astype(np.float32)
+    s = np.float32(0.0311)
+    got = (_t(x, cuda) / ops.epilogue.scalar_f32(float(s), cuda)).cpu()
+    np.testing.assert_array_equal(got.numpy(), x / s)
