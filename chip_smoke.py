@@ -1,27 +1,49 @@
-"""Smoke run of the PyTorch port on one CUDA card: INT8 ResNet-18 serving.
+"""Smoke run of the PyTorch port on one CUDA card: dense and block-sparse
+INT8 ResNet-18 serving and the INT8 MNIST CNN.
 
     python3 chip_smoke.py
 
 Needs one card, nvcc and the repo checkout; exits non-zero (and prints no
 result line) without them.  Phases, each fatal on failure:
 
-1. Build the three kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
-2. Hold each kernel against its plain PyTorch version on the card, bit for
-   bit, at the main path's shapes and values: a seed-0 ResNet-18
+1. Build the four kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
+2. Hold K1-K3 against their plain PyTorch versions on the card, bit for
+   bit, at the dense path's shapes and values: a seed-0 ResNet-18
    (ImageNet geometry, 1000 classes), quantized and calibrated on the CPU,
    serving a batch of 128 images of 224 x 224 -- the stem (K1), every conv
    of the trunk including the residual joins (K2) and the fc layer (K3).
-   Prints the median kernel and plain times (CUDA events).
+   Prints the median kernel and plain times (CUDA events; device time, the
+   host's launch time left out).
 3. Serve three batches of 128 through ``InferenceEngine(device="cuda")``
-   with every launch count reset to 0 just before; each kernel must have
+   with every launch count reset to 0 just before; K1-K3 must each have
    launched.  The logits must be finite, [128, 1000], bit-identical to the
    plain path on the card, and for two images bit-identical to the plain
    path on the CPU.  Prints img/s (CUDA events, median forward).
 4. Run ``python -m resnet_accel_tpu_torch infer --device cuda`` once.
+5. Sparse ResNet-18: the same seed-0 weights block-pruned at 0.7 with
+   128 x 128 blocks, quantized, BSR attached at 128 (``min_sparsity``
+   0.25).  Walks one batch of 128 through the layers and holds K4 against
+   its plain version at each sparse conv, bit for bit; prints the im2col,
+   K4, plain and the dense K2 times of the same pruned conv.
+6. Serve three batches of 128 through the engine on the sparse model,
+   counts reset just before: K1, K2, K3 and K4 must each launch.  The
+   logits must be bit-identical to the plain path on the card, for two
+   images to the plain path on the CPU, and to the dense forward of the
+   same pruned model.  Prints both forwards' img/s (CUDA events, median),
+   in the order dense, sparse, sparse, dense.
+7. The MNIST CNN from seeded arrays written in the reference's int8
+   export layout, fc1 block-pruned at 0.9, batch 128: K4 against its plain
+   version at fc1; the engine's logits (counts reset just before; K2, K3
+   and K4 must launch) bit-identical to the plain path on the card and on
+   the CPU.
+8. ``python -m resnet_accel_tpu_torch bench --sizes 2048,4096
+   --sparsities 0.0,0.5,0.7,0.9 --batch 512 --device cuda`` and
+   ``infer --model mnist --weights <dir> --device cuda``, as subprocesses.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Every time printed is labelled with the
-card's name and power limit.
+The line before the last is ``{"kernels": [...]}`` (launches summed over
+the three served paths; ms the kernel's time summed over the shapes of the
+path it serves); the last is ``{"ok": true, "device": {...}}``.  Every
+time printed is labelled with the card's name and power limit.
 """
 
 import json
@@ -39,6 +61,11 @@ BATCH = 128
 HW = 224
 CLASSES = 1000
 SEED = 0
+SPARSITY = 0.7          # block pruning of the sparse ResNet-18
+BLOCK = 128
+MNIST_FC1_SPARSITY = 0.9
+MNIST_SHAPES = {"conv1": (32, 1, 3, 3), "conv2": (64, 32, 3, 3),
+                "fc1": (128, 9216), "fc2": (10, 128)}
 
 
 def fail(msg: str):
@@ -54,15 +81,22 @@ def card_label() -> str:
     return out[torch.cuda.current_device()].strip()
 
 
+#: Clock cycles the card spins (about 2.5 ms) before each timed run, so
+#: that the host has queued the whole run before its start event fires.
+SPIN_CYCLES = 5_000_000
+
+
 def time_ms(fn, iters: int) -> float:
-    """Median device time of ``fn`` over ``iters`` runs, after one warm-up
-    (CUDA events around each run)."""
+    """Median device time of ``fn`` over ``iters`` runs, after one warm-up:
+    CUDA events around each run, recorded behind a spin of the card, so
+    the host's time to launch ``fn`` is not counted."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -75,6 +109,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
+def served_launches(_kernels, run, must: list, what: str) -> dict:
+    """Counts of one served path: reset just before ``run()``, read just
+    after; every kernel in ``must`` has to have launched."""
+    _kernels.reset_launch_counts()
+    out = run()
+    counts = _kernels.launch_counts()
+    print(f"launch counts, {what}: {counts}")
+    for name in must:
+        if counts[name] == 0:
+            fail(f"kernel {name} was never launched by {what}")
+    return out, counts
+
+
+def mnist_int8_dir(path: str, seed: int) -> None:
+    """Write a seeded MNIST CNN in the reference's int8 export layout:
+    He-init float weights quantized per channel (fc1's 128 x 128 blocks
+    zeroed with probability MNIST_FC1_SPARSITY), int8 biases with a
+    per-tensor scale."""
+    from resnet_accel_tpu_torch.quant import quantize_symmetric_per_channel
+    rng = np.random.default_rng(seed)
+    for layer, shape in MNIST_SHAPES.items():
+        fan_in = int(np.prod(shape[1:]))
+        w = rng.normal(0, np.sqrt(2.0 / fan_in), shape).astype(np.float32)
+        if layer == "fc1":
+            mask = rng.random((1, 72)) < MNIST_FC1_SPARSITY
+            w[np.repeat(np.repeat(mask, 128, 0), 128, 1)] = 0.0
+        q, s = quantize_symmetric_per_channel(w)
+        b = rng.normal(0, 0.05, shape[0]).astype(np.float32)
+        b_scale = float(np.abs(b).max()) / 127.0
+        np.save(os.path.join(path, f"{layer}_weight_int8.npy"), q)
+        np.save(os.path.join(path, f"{layer}_weight_scales.npy"), s)
+        np.save(os.path.join(path, f"{layer}_bias_int8.npy"), np.clip(
+            np.rint(b / b_scale), -128, 127).astype(np.int8))
+        with open(os.path.join(path, f"{layer}_bias_scale.json"), "w") as f:
+            json.dump({"scale": b_scale}, f)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
@@ -83,20 +154,28 @@ def main() -> None:
         fail(f"no resnet_accel_tpu_torch package beside {__file__}")
     sys.path.insert(0, repo)
     from resnet_accel_tpu_torch import _kernels
+    from resnet_accel_tpu_torch.models.mnist_cnn import (
+        MNISTCNNInt8, MNISTCNNInt8Module)
     from resnet_accel_tpu_torch.models.resnet18 import (
-        ResNet18Int8Module, init_resnet18_fp32, quantize_resnet18)
+        ResNet18Int8Module, attach_bsr, init_resnet18_fp32,
+        prune_params_blockwise, quantize_resnet18)
     from resnet_accel_tpu_torch.ops import (
-        conv2d_int8, conv2d_int8_plain, matmul_int8, matmul_int8_plain,
-        stem_conv_pool, stem_conv_pool_plain, avgpool_global_int8)
-    from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
+        add_residual, avgpool_global_int8, bsr_matmul_wt, bsr_matmul_wt_plain,
+        conv2d_int8, conv2d_int8_plain, im2col_nchw, matmul_int8,
+        matmul_int8_plain, maxpool2d_int8, quantize_input, stem_conv_pool,
+        stem_conv_pool_plain)
+    from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
+                                                       preprocess_mnist)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
+    cl = torch.channels_last
     label = card_label()
     print(label)  # name, power limit: as nvidia-smi prints them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
     # ---- 1. build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -107,8 +186,8 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     calib = rng.normal(0, 1, (2, 3, HW, HW)).astype(np.float32)
     t0 = time.perf_counter()
-    model = quantize_resnet18(
-        init_resnet18_fp32(seed=SEED, num_classes=CLASSES), calib, CLASSES)
+    params = init_resnet18_fp32(seed=SEED, num_classes=CLASSES)
+    model = quantize_resnet18(params, calib, CLASSES)
     print(f"quantize + calibrate on the CPU: "
           f"{time.perf_counter() - t0:.1f} s")
     batches = [rng.normal(0, 1, (BATCH, 3, HW, HW)).astype(np.float32)
@@ -120,15 +199,19 @@ def main() -> None:
     stats = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0}
              for k in _kernels.KERNELS}
 
-    def check(kernel, name, fn, plain, shape, iters=10, plain_iters=3):
+    def check(kernel, name, fn, plain, shape, iters=10, plain_iters=3,
+              timed=True):
+        """Kernel vs plain, bit for bit; with ``timed`` their times add to
+        the kernel's totals."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        ms, pms = time_ms(fn, iters), time_ms(plain, plain_iters)
         s = stats[kernel]
-        s["ms"] += ms
-        s["plain_ms"] += pms
         s["err"] = max(s["err"], err)
+        ms, pms = time_ms(fn, iters), time_ms(plain, plain_iters)
+        if timed:
+            s["ms"] += ms
+            s["plain_ms"] += pms
         print(f"{kernel:12s} {name:6s} {shape:42s} equal={err == 0.0} "
               f"kernel {ms:.4f} ms  plain {pms:.4f} ms  ({label})")
         if err != 0.0 or got.shape != want.shape:
@@ -161,16 +244,12 @@ def main() -> None:
               lambda: matmul_int8_plain(p, mod.fc_w, bias=mod.fc_b),
               f"a{list(p.shape)} b{list(mod.fc_w.shape)} int32")
 
-    # ---- 3. the slice through the engine ------------------------------
+    # ---- 3. the dense slice through the engine ------------------------
     engine = InferenceEngine(model, device="cuda")
-    _kernels.reset_launch_counts()
-    results = [engine.run_inference(xb) for xb in batches]
-    launches = _kernels.launch_counts()
-    print(f"launch counts over {len(batches)} batches of {BATCH}: "
-          f"{launches}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was never launched by the main path")
+    results, launches = served_launches(
+        _kernels, lambda: [engine.run_inference(xb) for xb in batches],
+        ["stem_fused", "conv_int8", "matmul_int8"],
+        f"dense ResNet-18, {len(batches)} batches of {BATCH}")
     with torch.inference_mode():
         for b, (xb, res) in enumerate(zip(batches, results)):
             if res.logits.shape != (BATCH, CLASSES) or \
@@ -194,6 +273,7 @@ def main() -> None:
           f"{bench.images_per_s:.1f} img/s; run_inference incl. copies: "
           f"{[round(r.images_per_s, 1) for r in results]} img/s  "
           f"({label})")
+    del engine
 
     # ---- 4. the CLI -----------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -210,8 +290,171 @@ def main() -> None:
         print(proc.stderr, file=sys.stderr)
         fail(f"CLI infer exited {proc.returncode}")
 
+    # ---- 5. sparse ResNet-18: K4 at every sparse conv -----------------
+    t0 = time.perf_counter()
+    pruned = quantize_resnet18(
+        prune_params_blockwise(params, sparsity=SPARSITY, block=BLOCK),
+        calib, CLASSES)
+    sparse = attach_bsr(pruned, block=BLOCK, min_sparsity=0.25)
+    print(f"prune {SPARSITY} at {BLOCK}, quantize, attach BSR on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    bsr_of = {name: qc.bsr for name, qc in sparse.named_convs()
+              if qc.bsr is not None}
+    print(f"{len(bsr_of)} sparse convs: " + ", ".join(
+        f"{n} {b.nnz_blocks}/{b.total_blocks}" for n, b in bsr_of.items()))
+    if not bsr_of:
+        fail("attach_bsr gave no layer BSR weights")
+    smod = ResNet18Int8Module(sparse, dev).eval()
+    dmod = ResNet18Int8Module(pruned, dev).eval()
+    im2col_total = dense_total = 0.0
+    with torch.inference_mode():
+        a = stem_conv_pool(x, smod.stem.weight, smod.stem.bias,
+                           smod.stem.factors, smod.s_input)
+        for i, (convs, dconvs, rs) in enumerate(
+                zip(smod.blocks, dmod.blocks, smod.res_scales)):
+            def run(tag, inp, **join):
+                nonlocal im2col_total, dense_total
+                cv, dcv = convs[tag], dconvs[tag]
+                if cv.packed is None:
+                    return cv(inp, conv2d_int8, **join)
+                N, _, H, W = inp.shape
+                Ho = (H + 2 * cv.padding - cv.kernel) // cv.stride + 1
+                Wo = (W + 2 * cv.padding - cv.kernel) // cv.stride + 1
+
+                def im2col():
+                    return im2col_nchw(inp, cv.kernel, cv.stride,
+                                       cv.padding).reshape(N * Ho * Wo, -1)
+                im_ms = time_ms(im2col, 5)
+                A, pk = im2col(), cv.packed
+                kw = dict(bias=cv.bias, factors=cv.factors, relu=cv.relu)
+                q = check("bsr_matmul", f"b{i}.{tag}",
+                          lambda: bsr_matmul_wt(A, pk, **kw),
+                          lambda: bsr_matmul_wt_plain(A, pk, **kw),
+                          f"A{list(A.shape)} N{pk.n_out} "
+                          f"{pk.nnz_source}/{pk.total_source} blocks")
+                d_ms = time_ms(lambda: dcv(inp, conv2d_int8, **join), 10)
+                im2col_total += im_ms
+                dense_total += d_ms
+                print(f"{'':12s} b{i}.{tag:3s} im2col {im_ms:.4f} ms; dense "
+                      f"K2 on the pruned conv{' +join' if join else ''} "
+                      f"{d_ms:.4f} ms  ({label})")
+                q = q.view(N, Ho, Wo, -1).permute(0, 3, 1, 2)
+                if join:
+                    q = add_residual(q, join["residual"],
+                                     *join["res_scales"], relu=True)
+                    q = q.contiguous(memory_format=cl)
+                return q
+            y = run("c1", a)
+            r = run("ds", a) if "ds" in convs else a
+            a = run("c2", y, residual=r, res_scales=rs)
+    s4 = stats["bsr_matmul"]
+    print(f"sparse convs ({len(bsr_of)}): K4 {s4['ms']:.4f} ms + im2col "
+          f"{im2col_total:.4f} ms vs dense K2 {dense_total:.4f} ms; K4 "
+          f"plain {s4['plain_ms']:.4f} ms  ({label})")
+
+    # ---- 6. the sparse slice through the engine -----------------------
+    sengine = InferenceEngine(sparse, device="cuda")
+    sresults, slaunches = served_launches(
+        _kernels, lambda: [sengine.run_inference(xb) for xb in batches],
+        list(_kernels.KERNELS),
+        f"sparse ResNet-18, {len(batches)} batches of {BATCH}")
+    dengine = InferenceEngine(pruned, device="cuda")
+    with torch.inference_mode():
+        for b, (xb, res) in enumerate(zip(batches, sresults)):
+            xt = torch.from_numpy(xb).to(dev)
+            for what, ref in (
+                    ("the plain path", sengine.module.forward_plain(xt)),
+                    ("the dense forward of the pruned model",
+                     dengine.module(xt))):
+                ref = ref.cpu().numpy()
+                if res.logits.shape != (BATCH, CLASSES) or \
+                        not np.array_equal(res.logits, ref):
+                    fail(f"sparse batch {b}: logits differ from {what}")
+        cpu = ResNet18Int8Module(sparse, "cpu")(
+            torch.from_numpy(batches[0][:2])).numpy()
+    if not np.array_equal(sresults[0].logits[:2], cpu):
+        fail("sparse logits differ from the plain path on the CPU")
+    print(f"sparse logits: {len(batches)} x [{BATCH}, {CLASSES}], "
+          f"bit-identical to the plain path on the card, (2 images) on the "
+          f"CPU and to the dense forward of the pruned model")
+    for eng, what in ((dengine, "dense"), (sengine, "sparse"),
+                      (sengine, "sparse"), (dengine, "dense")):
+        bench = eng.benchmark(batches[0], iters=10)
+        print(f"pruned model, {what:6s} forward batch {BATCH}: "
+              f"{bench.latency_s * 1e3:.3f} ms median, "
+              f"{bench.images_per_s:.1f} img/s  ({label})")
+    del sengine, dengine, smod, dmod
+
+    # ---- 7. the MNIST CNN -----------------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    int8_dir = os.path.join(tmp.name, "int8")
+    os.mkdir(int8_dir)
+    mnist_int8_dir(int8_dir, SEED)
+    digits = np.random.default_rng(SEED + 1).integers(
+        0, 256, (BATCH, 28, 28)).astype(np.uint8)
+    digits_path = os.path.join(tmp.name, "digits.npy")
+    np.save(digits_path, digits)
+    mnist = MNISTCNNInt8.from_int8_dir(int8_dir, digits).with_fc1_bsr(BLOCK)
+    print(f"MNIST CNN: fc1 sparsity {mnist.sparsity_report()}")
+    xm = preprocess_mnist(digits)
+    mengine = InferenceEngine(mnist, device="cuda")
+    mm = mengine.module
+    with torch.inference_mode():
+        xt = torch.from_numpy(xm).to(dev)
+        f = torch.nn.functional.pad(quantize_input(xt, mm.s_input),
+                                    (0, 0, 0, 0, 0, 3))
+        f = conv2d_int8(f.contiguous(memory_format=cl), mm.conv1_w,
+                        mm.conv1_b, mm.conv1_f, relu=True)
+        f = conv2d_int8(f, mm.conv2_w, mm.conv2_b, mm.conv2_f, relu=True)
+        f = maxpool2d_int8(f, 2, 2).contiguous().reshape(BATCH, -1)
+        kw = dict(bias=mm.fc1_b, factors=mm.fc1_f, relu=True)
+        pk = mm.fc1_packed
+        check("bsr_matmul", "fc1",
+              lambda: bsr_matmul_wt(f, pk, **kw),
+              lambda: bsr_matmul_wt_plain(f, pk, **kw),
+              f"A{list(f.shape)} N{pk.n_out} "
+              f"{pk.nnz_source}/{pk.total_source} blocks (MNIST)",
+              timed=False)
+    mres, mlaunches = served_launches(
+        _kernels, lambda: mengine.run_inference(xm),
+        ["conv_int8", "matmul_int8", "bsr_matmul"],
+        f"MNIST CNN, a batch of {BATCH}")
+    with torch.inference_mode():
+        plain = mm.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
+        cpu = MNISTCNNInt8Module(mnist, "cpu")(torch.from_numpy(xm)).numpy()
+    if mres.logits.shape != (BATCH, 10) or not np.isfinite(mres.logits).all():
+        fail(f"MNIST logits {mres.logits.shape} not finite [{BATCH}, 10]")
+    if not (np.array_equal(mres.logits, plain)
+            and np.array_equal(mres.logits, cpu)):
+        fail("MNIST logits differ from the plain path")
+    print(f"MNIST logits [{BATCH}, 10] bit-identical to the plain path on "
+          f"the card and on the CPU; {len(np.unique(mres.predictions))} "
+          f"distinct classes predicted")
+
+    # ---- 8. the CLI: bench sweep and MNIST inference -------------------
+    for args, expect in (
+            (["bench", "--sizes", "2048,4096", "--sparsities",
+              "0.0,0.5,0.7,0.9", "--batch", "512", "--device", "cuda"],
+             "'sparsity': 0.9"),
+            (["infer", "--model", "mnist", "--weights", int8_dir,
+              "--input", digits_path, "--device", "cuda", "--limit", "4"],
+             "sample 3:")):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "resnet_accel_tpu_torch", *args],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        print(proc.stdout, end="")
+        print(f"{args[0]}: {time.perf_counter() - t0:.1f} s  ({label})")
+        if proc.returncode != 0 or expect not in proc.stdout:
+            print(proc.stderr, file=sys.stderr)
+            fail(f"CLI {args[0]} exited {proc.returncode}")
+    tmp.cleanup()
+
+    total = {name: launches[name] + slaunches[name] + mlaunches[name]
+             for name in _kernels.KERNELS}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": k.source,
-                "replaces": k.replaces, "launches": launches[name],
+                "replaces": k.replaces, "launches": total[name],
                 "max_abs_err": stats[name]["err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
                for name, k in _kernels.KERNELS.items()]

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written Hopper kernels.
 
 The CUDA sources under ``csrc/`` expose a plain C interface.  At the first
-CUDA use they are compiled with ``nvcc`` for ``sm_90a`` into
-``_build/libkernels.so`` and loaded with ``ctypes``; nothing is built or
+CUDA use they are compiled with ``nvcc`` for ``sm_90a`` (one process per
+source, in parallel), linked into ``_build/libkernels.so`` and loaded with
+``ctypes``; nothing is built or
 loaded when the package is imported, so the CPU path needs neither
 ``nvcc`` nor a card.  The build is keyed by a hash of the sources and the
 flags and is redone when either changes.
@@ -35,7 +36,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
 # No --use_fast_math, and -fmad=false so that no a*b+c in the epilogues is
 # contracted into an FMA: the golden rounds every f32 operation on its own.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 
@@ -66,6 +67,10 @@ KERNELS: Dict[str, Kernel] = {
                "resnet_accel_tpu_torch/csrc/matmul_int8.cu",
                "resnet_accel_tpu/ops/matmul_int8.py:74",
                [_P] * 5 + [_I] * 5 + [_P]),
+        Kernel("bsr_matmul", "bsr_matmul_launch",
+               "resnet_accel_tpu_torch/csrc/bsr_matmul.cu",
+               "resnet_accel_tpu/ops/bsr_matmul.py:194",
+               [_P] * 7 + [_I] * 9 + [_P]),
     )
 }
 
@@ -114,19 +119,32 @@ def build(verbose: bool = False) -> str:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, LIB_PATH)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        # One nvcc per source, all at once; then one link.
+        objs = [os.path.join(work, os.path.basename(p) + ".o") for p in cu]
+        procs = []
+        for src, obj in zip(cu, objs):
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                   "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        tmp = os.path.join(work, "libkernels.so")
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        errors = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{' '.join(cmd)}\n{err}")
+            elif verbose:
+                print(err, end="")
+        if not errors:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                errors.append(f"{' '.join(link)}\n{proc.stderr}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest + "\n")
     return LIB_PATH

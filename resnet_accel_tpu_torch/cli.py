@@ -1,29 +1,48 @@
 """Command-line interface.
 
-    infer     run INT8 ResNet-18 inference on an .npy array of images
+    infer     run INT8 inference (ResNet-18 or the MNIST CNN) on an .npy
+              array of images
+    bench     dense-vs-sparse GEMM sweep through the zero-skip kernel
 
 Usage: python -m resnet_accel_tpu_torch infer --model resnet18 \\
            --input x.npy --device cuda
+       python -m resnet_accel_tpu_torch infer --model mnist \\
+           --weights int8_dir --input digits.npy --device cuda
+       python -m resnet_accel_tpu_torch bench --device cuda
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import statistics
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 
 def cmd_infer(args) -> int:
-    from resnet_accel_tpu_torch.models.resnet18 import (init_resnet18_fp32,
-                                                        quantize_resnet18)
-    from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
+    from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
+                                                       preprocess_mnist)
 
-    x = np.load(args.input).astype(np.float32)
-    fp32 = init_resnet18_fp32(seed=0, num_classes=args.num_classes,
-                              small_input=args.small_input)
-    model = quantize_resnet18(fp32, x[:4], args.num_classes,
-                              small_input=args.small_input)
+    x = np.load(args.input)
+    if args.model == "mnist":
+        from resnet_accel_tpu_torch.models.mnist_cnn import MNISTCNNInt8
+        if args.weights is None:
+            raise SystemExit("--model mnist needs --weights DIR (the int8 "
+                             "export: {layer}_weight_int8.npy, ...)")
+        model = MNISTCNNInt8.from_int8_dir(args.weights, x)
+        if x.ndim == 3:
+            x = preprocess_mnist(x.astype(np.uint8))
+    else:
+        from resnet_accel_tpu_torch.models.resnet18 import (
+            init_resnet18_fp32, quantize_resnet18)
+        x = x.astype(np.float32)
+        fp32 = init_resnet18_fp32(seed=0, num_classes=args.num_classes,
+                                  small_input=args.small_input)
+        model = quantize_resnet18(fp32, x[:4], args.num_classes,
+                                  small_input=args.small_input)
     eng = InferenceEngine(model, device=args.device)
     res = eng.run_inference(x[:args.limit])
     for i, (pred, t5) in enumerate(zip(res.predictions, res.top5)):
@@ -33,19 +52,123 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def _median_time_s(fn, iters: int, device) -> float:
+    """Median time of one ``fn()`` after a warm-up: on a card, CUDA events
+    recorded behind a spin of the card (about 2.5 ms), so that the host has
+    queued ``fn`` before the start event fires and only device time
+    counts; on the CPU, the host clock."""
+    import torch
+    fn()
+    times = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(5_000_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def cmd_bench(args) -> int:
+    """Sizes x sparsities sweep: a square int8 W with 128 x 128 blocks
+    zeroed at random, through ``bsr_matmul_wt``; latency, GOPS over the
+    stored blocks and the speedup against the first sparsity (dense).
+    ``max_row_blocks`` is the fullest block row's count: the kernel's
+    blocks each walk one block row, so it bounds the time."""
+    import torch
+    from resnet_accel_tpu_torch.ops import bsr_matmul_wt, pack_bsr
+    from resnet_accel_tpu_torch.runtime.backend import resolve_device
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+
+    dev = resolve_device(args.device)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"bench on {name}")
+    rng = np.random.default_rng(0)
+    sizes = [int(s) for s in args.sizes.split(",")]
+    sparsities = [float(s) for s in args.sparsities.split(",")]
+    M = args.batch if args.batch > 0 else 512
+    rows = []
+    with torch.inference_mode():
+        for n in sizes:
+            base_dt = cpu_dt = None
+            if not args.no_cpu_baseline:
+                # numpy int32 GEMM on the host, best of 3 after a warm-up
+                Wc = rng.integers(-128, 128, (n, n)).astype(np.int32)
+                Ac = rng.integers(-128, 128, (M, n)).astype(np.int32)
+                _ = Ac @ Wc.T
+                cpu_dt = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    _ = Ac @ Wc.T
+                    cpu_dt = min(cpu_dt, time.perf_counter() - t0)
+            for sp in sparsities:
+                W = rng.integers(-128, 128, (n, n)).astype(np.int8)
+                nb = n // 128
+                mask = rng.random((nb, nb)) < sp
+                W[np.repeat(np.repeat(mask, 128, 0), 128, 1)] = 0
+                packed = pack_bsr(build_bsr_int8_direct(W, 128), dev)
+                A = torch.from_numpy(
+                    rng.integers(-128, 128, (M, n)).astype(np.int8)).to(dev)
+                dt = _median_time_s(lambda: bsr_matmul_wt(A, packed),
+                                    args.iters, dev)
+                if base_dt is None:
+                    base_dt = dt
+                row = {"M": M, "N": n, "K": n, "sparsity": sp,
+                       "nnz_blocks": packed.nnz_source,
+                       "max_row_blocks": int(
+                           packed.row_ptr.diff().max().item()),
+                       "latency_us": dt * 1e6,
+                       "gops": 2 * M * packed.nnz_source * 128 * 128
+                       / dt / 1e9,
+                       "speedup_vs_dense": base_dt / dt}
+                if cpu_dt is not None:
+                    row["speedup_vs_cpu"] = cpu_dt / dt
+                rows.append(row)
+                print(row)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({"device": name, "rows": rows}, f, indent=2)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m resnet_accel_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pi = sub.add_parser("infer", help="run INT8 inference")
-    pi.add_argument("--model", choices=["resnet18"], default="resnet18")
+    pi.add_argument("--model", choices=["resnet18", "mnist"],
+                    default="resnet18")
+    pi.add_argument("--weights", default=None,
+                    help="mnist: directory of the int8 export")
     pi.add_argument("--input", required=True,
-                    help=".npy float32 images, NCHW")
+                    help=".npy images: float32 NCHW, or for mnist raw "
+                         "[N, 28, 28] pixels")
     pi.add_argument("--device", required=True, choices=["cuda", "cpu"])
     pi.add_argument("--limit", type=int, default=8)
     pi.add_argument("--num-classes", type=int, default=1000)
     pi.add_argument("--small-input", action="store_true",
                     help="CIFAR geometry: 3x3 stem, no max pool")
     pi.set_defaults(fn=cmd_infer)
+
+    pb = sub.add_parser("bench", help="dense-vs-sparse GEMM sweep")
+    pb.add_argument("--sizes", default="2048,4096")
+    pb.add_argument("--sparsities", default="0.0,0.5,0.7,0.9")
+    pb.add_argument("--batch", type=int, default=0,
+                    help="rows M (0 = 512)")
+    pb.add_argument("--iters", type=int, default=5)
+    pb.add_argument("--output", default=None)
+    pb.add_argument("--no-cpu-baseline", action="store_true",
+                    help="skip the numpy int32 GEMM column")
+    pb.add_argument("--device", required=True, choices=["cuda", "cpu"])
+    pb.set_defaults(fn=cmd_bench)
     return ap
 
 

@@ -1,0 +1,213 @@
+// K4: block-sparse int8 GEMM that visits stored blocks only -- the zero-
+// block skip -- on the int8 tensor cores, with a fused epilogue.
+//
+// Replaces resnet_accel_tpu/ops/bsr_matmul.py::_bsr_resident_kernel (and
+// its per-block sibling _bsr_kernel), reached through bsr_matmul_wt: the
+// sparse convs of the pruned ResNet-18 (after im2col), the MNIST CNN's fc1
+// and the bench sweep.
+//
+// Computes C[M, N] = A[M, K] @ W^T, A int8 row-major, W[N, K] int8 in CSR
+// blocks: the blocks of block row br are blocks[row_ptr[br] .. row_ptr[br
+// + 1]), each [bh, bw] row-major (W's orientation, so a block row of W is
+// K-contiguous: the layout the mma B fragment wants), at K offset
+// col_idx[i] * bw.  Per output (m, n):
+//   acc = sum over stored blocks (int32, exact) + bias[n]
+//   acc = relu(acc) if relu
+//   out = requant ? clip(rint(float(acc) * factors[n]), -128, 127) : acc
+// A block row with no stored block writes its epilogue of a zero sum.
+// M, N and K may be ragged: reads of A past K and writes past N are
+// masked, so A needs no padded copy.  Takes bh % 16 == 0, bw % 32 == 0.
+//
+// What bounds it on the H100: on the served model the work is the stored
+// blocks' multiply-adds (77 G over the 18 sparse convs at batch 128, 0.3
+// to 6.6 G each) over im2col matrices of up to 231 MB that the blocks read
+// slab by slab, so it is bound by arithmetic unless the arithmetic runs on
+// the tensor cores; with them, a block's K loop is short (8 steps for a
+// stage-1 conv), and its fixed costs -- the first fetch, the epilogue's
+// byte stores -- weigh as much as the loop.  The design: one block per
+// (128-row M tile, 64-column slice of one block row) walks its row's
+// stored blocks only, consuming 32 K values a step with mma.sync
+// m16n8k32 (8 warps of 32 x 32), the next step's A and W words fetched
+// into registers while the tensor cores work on the current step in
+// shared memory (two stages), as K2 does.  A slice that holds only the
+// padding of N returns at once.  wgmma, TMA and deeper pipelines are the
+// next step.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "epilogue.cuh"
+#include "mma_s8.cuh"
+
+namespace {
+
+constexpr int kBM = 128;    // A rows per block
+constexpr int kBN = 64;     // output columns per block (a block-row slice)
+constexpr int kKW = 8;      // 4-byte K words per step (32 int8 values)
+constexpr int kLd = 12;     // shared row stride in words, as in K2
+constexpr int kThreads = 256;
+
+struct BsrGeom {
+  int64_t M;
+  int K, N, bh, bw, nsub;   // nsub: kBN-column slices per block row
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+bsr_int8_kernel(const int8_t* __restrict__ a,
+                const int8_t* __restrict__ blocks,
+                const int32_t* __restrict__ row_ptr,
+                const int32_t* __restrict__ col_idx,
+                const int32_t* __restrict__ bias,
+                const float* __restrict__ factors, void* __restrict__ out,
+                BsrGeom g, int relu, int requant, int vec_a) {
+  __shared__ __align__(16) int As[2][kBM * kLd];   // [row][k word]
+  __shared__ __align__(16) int Bs[2][kBN * kLd];   // [column][k word]
+
+  const int br = blockIdx.y / g.nsub;
+  const int c0 = (blockIdx.y % g.nsub) * kBN;  // slice start in the block row
+  const int n0 = br * g.bh + c0;               // its first output column
+  if (n0 >= g.N) return;                       // padding of N only
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kBM;
+  const int lo = row_ptr[br];
+  const int per_block = g.bw / (4 * kKW);      // steps per stored block
+  const int steps = (row_ptr[br + 1] - lo) * per_block;
+
+  // Each thread fetches bytes [16*half, 16*half + 16) of every step for
+  // one A row and, in the first half of the block, for one W row.
+  const int half = tid % 2;
+  const int row = tid / 2;                     // 0..127
+  const bool a_live = m0 + row < g.M;
+  const int8_t* arow = a + (a_live ? (m0 + row) * g.K : 0);
+  const bool b_live = row < kBN && c0 + row < g.bh;
+
+  int4 ra, rb;
+  auto fetch = [&](int s) {
+    ra = make_int4(0, 0, 0, 0);
+    rb = make_int4(0, 0, 0, 0);
+    const int blk = lo + s / per_block;
+    const int kb = (s % per_block) * 4 * kKW + 16 * half;  // in the block
+    const int k = col_idx[blk] * g.bw + kb;                // in A
+    if (a_live) {
+      if (vec_a) {
+        if (k < g.K) ra = __ldg(reinterpret_cast<const int4*>(arow + k));
+      } else {
+        int w[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          int v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int kk = k + 4 * q + j;
+            v[j] = kk < g.K ? arow[kk] : 0;
+          }
+          w[q] = pack4(v[0], v[1], v[2], v[3]);
+        }
+        ra = make_int4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    if (b_live)
+      rb = __ldg(reinterpret_cast<const int4*>(
+          blocks + (static_cast<int64_t>(blk) * g.bh + c0 + row) * g.bw +
+          kb));
+  };
+  auto stash = [&](int s) {
+    *reinterpret_cast<int4*>(&As[s][row * kLd + 4 * half]) = ra;
+    if (row < kBN) *reinterpret_cast<int4*>(&Bs[s][row * kLd + 4 * half]) = rb;
+  };
+
+  // Warp tile: rows wm..wm+31 (two m16), columns wn..wn+31 (four n8).
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int gq = lane / 4, tq = lane % 4;  // mma groupID, thread in group
+  int acc[2][4][4] = {};
+
+  if (steps > 0) {
+    fetch(0);
+    stash(0);
+    __syncthreads();
+  }
+  int s = 0;
+  for (int step = 0; step < steps; ++step) {
+    const bool more = step + 1 < steps;
+    if (more) fetch(step + 1);  // in flight while the tensor cores run
+    const int* as = As[s];
+    const int* bs = Bs[s];
+    int af[2][4], bf[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wm + 16 * i + gq;
+      af[i][0] = as[r * kLd + tq];
+      af[i][1] = as[(r + 8) * kLd + tq];
+      af[i][2] = as[r * kLd + tq + 4];
+      af[i][3] = as[(r + 8) * kLd + tq + 4];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn + 8 * j + gq;
+      bf[j][0] = bs[c * kLd + tq];
+      bf[j][1] = bs[c * kLd + tq + 4];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    if (more) {
+      stash(s ^ 1);  // the other stage: nobody reads it this step
+      __syncthreads();
+      s ^= 1;
+    }
+  }
+
+  // Epilogue: acc[i][j] holds rows (r, r + 8) x columns (c, c + 1).
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cl = wn + 8 * j + 2 * tq + e;  // column in the slice
+      const int gn = n0 + cl;
+      if (c0 + cl >= g.bh || gn >= g.N) continue;
+      const int b = bias != nullptr ? bias[gn] : 0;
+      const float f = requant ? factors[gn] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t gm = m0 + wm + 16 * i + gq + 8 * h;
+          if (gm >= g.M) continue;
+          int v = acc[i][j][2 * h + e] + b;
+          if (relu) v = max(v, 0);
+          const int64_t off = gm * g.N + gn;
+          if (requant)
+            static_cast<int8_t*>(out)[off] =
+                static_cast<int8_t>(requant_i8(v, f));
+          else
+            static_cast<int32_t*>(out)[off] = v;
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int bsr_matmul_launch(const void* a, const void* blocks,
+                                 const void* row_ptr, const void* col_idx,
+                                 const void* bias, const void* factors,
+                                 void* out, int64_t M, int64_t K, int64_t N,
+                                 int64_t nbr, int64_t bh, int64_t bw,
+                                 int64_t relu, int64_t requant,
+                                 int64_t vec_a, void* stream) {
+  const int nsub = static_cast<int>((bh + kBN - 1) / kBN);
+  const BsrGeom g{M, static_cast<int>(K), static_cast<int>(N),
+                  static_cast<int>(bh), static_cast<int>(bw), nsub};
+  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
+                  static_cast<unsigned>(nbr * nsub));
+  bsr_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(blocks),
+      static_cast<const int32_t*>(row_ptr),
+      static_cast<const int32_t*>(col_idx),
+      static_cast<const int32_t*>(bias), static_cast<const float*>(factors),
+      out, g, static_cast<int>(relu), static_cast<int>(requant),
+      static_cast<int>(vec_a));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -38,6 +38,7 @@
 #include <cstdint>
 
 #include "epilogue.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -51,15 +52,6 @@ constexpr int kThreads = 256;
 struct ConvGeom {
   int N, H, W, C, O, Ho, Wo, KS, stride, pad;
 };
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
-                                       int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // kVec: C % 32 == 0, so a K step of 8 words is one tap's 32 channels and
 // every fetch is an aligned int4.

@@ -10,12 +10,20 @@ models (ResNet-18's plan and narrower test plans):
 - ``ResNet18Int8`` holds the quantized model as numpy arrays, with
   ``.npz`` save and load, and ``from_reference`` carries the JAX package's
   quantized model across, so both packages compute with the same model;
+- ``prune_params_blockwise`` zeroes whole weight blocks by magnitude and
+  ``attach_bsr`` gives each layer with enough zero blocks its
+  ``BSRMatrix`` (``QConv.bsr``): block-sparse serving;
 - ``ResNet18Int8Module`` is the forward (fp32 NCHW images -> fp32 logits),
   one route per layer:
 
       stem_conv_pool (K1) -> per block: conv2d_int8 (K2) for c1, for the
       downsample and for c2 with the residual join fused in
       -> avgpool_global_int8 -> matmul_int8 (K3) -> x fc_deq
+
+  A trunk layer with BSR weights runs im2col_nchw -> bsr_matmul_wt (K4,
+  the zero-block skip, with bias, ReLU and requant fused) instead of K2;
+  a sparse c2 then joins its residual with ``add_residual``.  The stem
+  always runs dense (the pruner never touches it).
 
   On CUDA tensors every step above marked K runs its hand-written kernel;
   on CPU tensors the plain PyTorch versions run.  ``forward_plain`` runs
@@ -29,7 +37,7 @@ JAX package's module.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,11 +45,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from resnet_accel_tpu_torch.ops import (
+    add_residual,
     avgpool_global_int8,
+    bsr_matmul_wt,
+    bsr_matmul_wt_plain,
     conv2d_int8,
     conv2d_int8_plain,
+    im2col_nchw,
     matmul_int8,
     matmul_int8_plain,
+    pack_bsr,
     pack_weight,
     quantize_input,
     requant_factors,
@@ -51,6 +64,7 @@ from resnet_accel_tpu_torch.ops import (
 from resnet_accel_tpu_torch.quant import (bias_to_int32,
                                           quantize_symmetric_per_channel)
 from resnet_accel_tpu_torch.runtime.backend import resolve_device
+from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix, build_bsr_int8_direct
 
 #: Stage plan: (out_channels, blocks, first_stride) of ResNet-18.
 STAGES = [(64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)]
@@ -162,6 +176,7 @@ class QConv:
     stride: int
     padding: int
     relu: bool
+    bsr: Optional[BSRMatrix] = None  # block-sparse w2d, from attach_bsr
 
 
 @dataclasses.dataclass
@@ -184,6 +199,7 @@ class QBlock:
 _QCONV_ARRAYS = ("w2d", "bias", "factors")
 _QCONV_INTS = ("in_channels", "kernel", "stride", "padding", "relu")
 _QBLOCK_SCALES = ("s_in", "s_main", "s_res", "s_out")
+_BSR_ARRAYS = ("data", "row_ptr", "col_idx")
 
 
 @dataclasses.dataclass
@@ -202,6 +218,11 @@ class ResNet18Int8:
         for i, blk in enumerate(self.blocks):
             yield from blk.named_convs(i)
 
+    def sparsity_report(self) -> Dict[str, float]:
+        """Block sparsity of each layer that carries BSR weights."""
+        return {prefix: 1.0 - qc.bsr.nnz_blocks / qc.bsr.total_blocks
+                for prefix, qc in self.named_convs() if qc.bsr is not None}
+
     def save_npz(self, path: str) -> None:
         arrays = {"fc_w": self.fc_w, "fc_b": self.fc_b,
                   "fc_deq": self.fc_deq,
@@ -214,6 +235,11 @@ class ResNet18Int8:
                 arrays[f"{prefix}.{k}"] = getattr(qc, k)
             arrays[f"{prefix}.geom"] = np.array(
                 [int(getattr(qc, k)) for k in _QCONV_INTS])
+            if qc.bsr is not None:
+                for k in _BSR_ARRAYS:
+                    arrays[f"{prefix}.bsr.{k}"] = getattr(qc.bsr, k)
+                arrays[f"{prefix}.bsr.geom"] = np.array(
+                    [*qc.bsr.shape, qc.bsr.block_h, qc.bsr.block_w])
         for i, blk in enumerate(self.blocks):
             arrays[f"b{i}.scales"] = np.array(
                 [getattr(blk, k) for k in _QBLOCK_SCALES], np.float64)
@@ -224,10 +250,16 @@ class ResNet18Int8:
         with np.load(path, allow_pickle=False) as z:
             def qconv(prefix):
                 geom = [int(v) for v in z[f"{prefix}.geom"]]
+                bsr = None
+                if f"{prefix}.bsr.geom" in z.files:
+                    h, w, bh, bw = (int(v) for v in z[f"{prefix}.bsr.geom"])
+                    bsr = BSRMatrix(**{k: z[f"{prefix}.bsr.{k}"]
+                                       for k in _BSR_ARRAYS},
+                                    shape=(h, w), block_h=bh, block_w=bw)
                 return QConv(**{k: z[f"{prefix}.{k}"]
                                 for k in _QCONV_ARRAYS},
                              **dict(zip(_QCONV_INTS[:-1], geom[:-1])),
-                             relu=bool(geom[-1]))
+                             relu=bool(geom[-1]), bsr=bsr)
 
             small_input, num_classes, n_blocks = (
                 int(v) for v in z["meta_int"])
@@ -249,18 +281,20 @@ def from_reference(model) -> ResNet18Int8:
     """Carry the JAX package's quantized ``ResNet18Int8`` across.
 
     Reads numpy attributes only (no import of the JAX module), so both
-    packages compute with the very same quantized model.  Bottleneck
-    blocks and block-sparse layers are not ported yet and are refused.
+    packages compute with the very same quantized model.  A layer with the
+    JAX package's packed BSR gets its ``BSRMatrix`` rebuilt from ``w2d`` at
+    the same block shape, and must count the same stored and total
+    blocks.  Bottleneck blocks are not ported yet and are refused.
     """
     def qconv(qc) -> QConv:
-        if getattr(qc, "bsr", None) is not None:
-            raise ValueError("block-sparse (BSR) layers are not ported")
-        return QConv(w2d=np.asarray(qc.w2d, np.int8),
+        w2d = np.asarray(qc.w2d, np.int8)
+        return QConv(w2d=w2d,
                      bias=np.asarray(qc.bias, np.int32),
                      factors=np.asarray(qc.factors, np.float32),
                      in_channels=int(qc.in_channels),
                      kernel=int(qc.kernel), stride=int(qc.stride),
-                     padding=int(qc.padding), relu=bool(qc.relu))
+                     padding=int(qc.padding), relu=bool(qc.relu),
+                     bsr=bsr_from_reference(w2d, getattr(qc, "bsr", None)))
 
     blocks = []
     for blk in model.blocks:
@@ -279,6 +313,21 @@ def from_reference(model) -> ResNet18Int8:
         fc_deq=np.asarray(model.fc_deq, np.float32),
         s_input=float(model.s_input), small_input=bool(model.small_input),
         num_classes=int(model.num_classes))
+
+
+def bsr_from_reference(w2d: np.ndarray, kbsr) -> Optional[BSRMatrix]:
+    """The ``BSRMatrix`` of ``w2d`` at the block shape of the JAX package's
+    ``KernelBSR`` ``kbsr`` (None for None); raise if the stored or total
+    block counts differ from the JAX package's."""
+    if kbsr is None:
+        return None
+    bsr = build_bsr_int8_direct(w2d, int(kbsr.block_h), int(kbsr.block_w))
+    if (bsr.nnz_blocks, bsr.total_blocks) != (int(kbsr.nnz_source),
+                                              int(kbsr.total_source)):
+        raise ValueError(
+            f"BSR rebuilt with {bsr.nnz_blocks}/{bsr.total_blocks} blocks, "
+            f"the reference has {kbsr.nnz_source}/{kbsr.total_source}")
+    return bsr
 
 
 # ==========================================================================
@@ -396,26 +445,117 @@ def quantize_resnet18(
 
 
 # ==========================================================================
+# Block sparsity
+# ==========================================================================
+
+def attach_bsr(
+    model: ResNet18Int8,
+    block: int = 128,
+    min_sparsity: float = 0.25,
+    layer_filter: Optional[Callable[[str], bool]] = None,
+) -> ResNet18Int8:
+    """Give every layer whose int8 weight has at least ``min_sparsity``
+    block sparsity (at ``block x block`` over the (c, kh, kw) flattening
+    ``w2d``) its ``BSRMatrix``; its conv then runs through the zero-skip
+    kernel.  ``layer_filter(prefix) -> bool`` limits the layers
+    considered.  Numerically exact either way."""
+    def maybe(qc: QConv, prefix: str) -> QConv:
+        if layer_filter is not None and not layer_filter(prefix):
+            return qc
+        bsr = build_bsr_int8_direct(qc.w2d, block)
+        if bsr.sparsity_pct / 100.0 < min_sparsity:
+            return qc
+        return dataclasses.replace(qc, bsr=bsr)
+
+    blocks = [dataclasses.replace(
+        blk, conv1=maybe(blk.conv1, f"b{i}.c1"),
+        conv2=maybe(blk.conv2, f"b{i}.c2"),
+        downsample=(maybe(blk.downsample, f"b{i}.ds")
+                    if blk.downsample is not None else None))
+        for i, blk in enumerate(model.blocks)]
+    return dataclasses.replace(model, stem=maybe(model.stem, "stem"),
+                               blocks=blocks)
+
+
+def prune_params_blockwise(
+    params_fp32: Dict[str, np.ndarray],
+    sparsity: float,
+    block: int = 128,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Magnitude block pruning of the conv weights (a numpy copy of the
+    JAX package's): each layer's [O, I*kH*kW] weight loses the
+    ``int(blocks * sparsity)`` ``block x block`` blocks of least L2 norm
+    (a stable argsort, so ties prune an exact quota).  The stem stays
+    dense."""
+    out = dict(params_fp32)
+    for name, w in params_fp32.items():
+        if not name.endswith(".weight") or w.ndim != 4:
+            continue
+        if name == "conv1.weight":
+            continue
+        w2 = w.reshape(w.shape[0], -1).copy()
+        H, W = w2.shape
+        ph, pw = -H % block, -W % block
+        wp = np.pad(w2, ((0, ph), (0, pw)))
+        nbr, nbc = wp.shape[0] // block, wp.shape[1] // block
+        t = wp.reshape(nbr, block, nbc, block)
+        norms = np.sqrt((t ** 2).sum(axis=(1, 3)))
+        n_prune = int(norms.size * sparsity)
+        if n_prune == 0:
+            continue
+        keep = np.ones(norms.size, bool)
+        keep[np.argsort(norms.reshape(-1),
+                        kind="stable")[:n_prune]] = False
+        full = np.repeat(np.repeat(keep.reshape(norms.shape), block, 0),
+                         block, 1)
+        w2 *= full[:H, :W]
+        out[name] = w2.reshape(w.shape).astype(np.float32)
+    return out
+
+
+# ==========================================================================
 # Forward
 # ==========================================================================
 
 class Int8Conv(nn.Module):
-    """One quantized conv's tensors on the device, with its geometry."""
+    """One quantized conv's tensors on the device, with its geometry.
 
-    def __init__(self, qc: QConv, weight: torch.Tensor,
+    With a dense ``weight`` the conv runs through ``conv`` (K2); with
+    ``weight=None`` the layer's BSR blocks are uploaded instead and it runs
+    im2col, then ``bsr`` (K4), and joins a residual, if given, after."""
+
+    def __init__(self, qc: QConv, weight: Optional[torch.Tensor],
                  device: torch.device):
         super().__init__()
-        self.stride, self.padding, self.relu = qc.stride, qc.padding, qc.relu
+        self.kernel, self.stride = qc.kernel, qc.stride
+        self.padding, self.relu = qc.padding, qc.relu
         self.register_buffer("weight", weight)
+        self.packed = pack_bsr(qc.bsr, device) if weight is None else None
         self.register_buffer("bias", torch.from_numpy(
             np.asarray(qc.bias, np.int32)).to(device))
         self.register_buffer("factors", torch.from_numpy(
             np.asarray(qc.factors, np.float32)).to(device))
 
-    def forward(self, x, conv=conv2d_int8, residual=None, res_scales=None):
-        return conv(x, self.weight, self.bias, self.factors,
-                    stride=self.stride, padding=self.padding, relu=self.relu,
-                    residual=residual, res_scales=res_scales)
+    def forward(self, x, conv=conv2d_int8, bsr=bsr_matmul_wt, residual=None,
+                res_scales=None):
+        if self.packed is None:
+            return conv(x, self.weight, self.bias, self.factors,
+                        stride=self.stride, padding=self.padding,
+                        relu=self.relu, residual=residual,
+                        res_scales=res_scales)
+        N, _, H, W = x.shape
+        Ho = (H + 2 * self.padding - self.kernel) // self.stride + 1
+        Wo = (W + 2 * self.padding - self.kernel) // self.stride + 1
+        a = im2col_nchw(x, self.kernel, self.stride, self.padding)
+        q = bsr(a.reshape(N * Ho * Wo, -1), self.packed, bias=self.bias,
+                factors=self.factors, relu=self.relu)
+        # [N*Ho*Wo, O] is NHWC: as NCHW it is channels-last already
+        q = q.view(N, Ho, Wo, -1).permute(0, 3, 1, 2)
+        if residual is not None:
+            q = add_residual(q, residual, *res_scales, relu=True).contiguous(
+                memory_format=torch.channels_last)
+        return q
 
 
 class ResNet18Int8Module(nn.Module):
@@ -449,8 +589,8 @@ class ResNet18Int8Module(nn.Module):
             convs = nn.ModuleDict()
             for prefix, qc in blk.named_convs(i):
                 convs[prefix.split(".")[1]] = Int8Conv(
-                    qc, pack_weight(qc.w2d, qc.in_channels, qc.kernel,
-                                    device), device)
+                    qc, None if qc.bsr is not None else pack_weight(
+                        qc.w2d, qc.in_channels, qc.kernel, device), device)
             self.blocks.append(convs)
             self.res_scales.append((blk.s_main, blk.s_res, blk.s_out))
         self.register_buffer("fc_w", torch.from_numpy(
@@ -462,14 +602,15 @@ class ResNet18Int8Module(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The kernels on CUDA tensors, the plain versions on CPU ones."""
-        return self._forward(x, stem_conv_pool, conv2d_int8, matmul_int8)
+        return self._forward(x, stem_conv_pool, conv2d_int8, matmul_int8,
+                             bsr_matmul_wt)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch versions of every kernel, on any device."""
         return self._forward(x, stem_conv_pool_plain, conv2d_int8_plain,
-                             matmul_int8_plain)
+                             matmul_int8_plain, bsr_matmul_wt_plain)
 
-    def _forward(self, x, stem, conv, matmul):
+    def _forward(self, x, stem, conv, matmul, bsr):
         if self.small_input:
             a = F.pad(quantize_input(x, self.s_input), (0, 0, 0, 0, 0, 1))
             a = self.stem(a.contiguous(memory_format=torch.channels_last),
@@ -478,9 +619,9 @@ class ResNet18Int8Module(nn.Module):
             a = stem(x, self.stem.weight, self.stem.bias, self.stem.factors,
                      self.s_input)
         for convs, rs in zip(self.blocks, self.res_scales):
-            y = convs["c1"](a, conv)
-            r = convs["ds"](a, conv) if "ds" in convs else a
-            a = convs["c2"](y, conv, residual=r, res_scales=rs)
+            y = convs["c1"](a, conv, bsr)
+            r = convs["ds"](a, conv, bsr) if "ds" in convs else a
+            a = convs["c2"](y, conv, bsr, residual=r, res_scales=rs)
         a = avgpool_global_int8(a)
         acc = matmul(a, self.fc_w, bias=self.fc_b)
         return acc.to(torch.float32) * self.fc_deq

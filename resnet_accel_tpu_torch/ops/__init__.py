@@ -1,6 +1,12 @@
-"""The compute path: the three kernel wrappers with their plain versions,
+"""The compute path: the four kernel wrappers with their plain versions,
 and the int8 epilogues and pools they share."""
 
+from resnet_accel_tpu_torch.ops.bsr_matmul import (
+    PackedBSR,
+    bsr_matmul_wt,
+    bsr_matmul_wt_plain,
+    pack_bsr,
+)
 from resnet_accel_tpu_torch.ops.conv import (
     conv2d_int8,
     conv2d_int8_plain,
@@ -28,8 +34,11 @@ from resnet_accel_tpu_torch.ops.stem_fused import (
 )
 
 __all__ = [
+    "PackedBSR",
     "add_residual",
     "avgpool_global_int8",
+    "bsr_matmul_wt",
+    "bsr_matmul_wt_plain",
     "conv2d_int8",
     "conv2d_int8_plain",
     "exact_inv_out_scale",
@@ -37,6 +46,7 @@ __all__ = [
     "matmul_int8",
     "matmul_int8_plain",
     "maxpool2d_int8",
+    "pack_bsr",
     "pack_weight",
     "quantize_input",
     "requant_factors",

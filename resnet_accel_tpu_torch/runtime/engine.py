@@ -1,8 +1,9 @@
-"""Inference engine: load a quantized ResNet-18 once, serve batches.
+"""Inference engine: load a quantized model once, serve batches.
 
 Counterpart of ``resnet_accel_tpu/runtime/engine.py`` (``run_inference``,
-``benchmark``, ``preprocess_imagenet``, ``softmax``, ``top_k``) on an
-explicit PyTorch device.
+``benchmark``, ``get_model_sparsity``, ``preprocess_imagenet``,
+``preprocess_mnist``, ``softmax``, ``top_k``) on an explicit PyTorch
+device, for the INT8 ResNet-18 (dense or block-sparse) and the MNIST CNN.
 """
 
 from __future__ import annotations
@@ -10,11 +11,14 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
+from resnet_accel_tpu_torch.models.mnist_cnn import (MNIST_MEAN, MNIST_STD,
+                                                     MNISTCNNInt8,
+                                                     MNISTCNNInt8Module)
 from resnet_accel_tpu_torch.models.resnet18 import (ResNet18Int8,
                                                     ResNet18Int8Module)
 from resnet_accel_tpu_torch.runtime.backend import resolve_device
@@ -28,6 +32,13 @@ def preprocess_imagenet(images_u8: np.ndarray) -> np.ndarray:
     x = images_u8.astype(np.float32) / 255.0
     x = (x - IMAGENET_MEAN) / IMAGENET_STD
     return np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+
+
+def preprocess_mnist(images_u8: np.ndarray) -> np.ndarray:
+    """[N, 28, 28] uint8 -> normalized [N, 1, 28, 28] float32."""
+    x = images_u8.astype(np.float32) / 255.0
+    x = (x - MNIST_MEAN) / MNIST_STD
+    return x.reshape(-1, 1, 28, 28)
 
 
 def softmax(logits: np.ndarray) -> np.ndarray:
@@ -72,12 +83,20 @@ class BenchmarkResult:
 
 
 class InferenceEngine:
-    """Upload a quantized ``ResNet18Int8`` to ``device`` once and run
-    batched int8 inference on it many times."""
+    """Upload a quantized ``ResNet18Int8`` or ``MNISTCNNInt8`` to
+    ``device`` once and run batched int8 inference on it many times."""
 
-    def __init__(self, model: ResNet18Int8, device="cuda"):
+    def __init__(self, model: Union[ResNet18Int8, MNISTCNNInt8],
+                 device="cuda"):
         self.device = resolve_device(device)
-        self.module = ResNet18Int8Module(model, self.device).eval()
+        self.model = model
+        module = (MNISTCNNInt8Module if isinstance(model, MNISTCNNInt8)
+                  else ResNet18Int8Module)
+        self.module = module(model, self.device).eval()
+
+    def get_model_sparsity(self) -> Dict[str, float]:
+        """Block sparsity of each layer that carries BSR weights."""
+        return self.model.sparsity_report()
 
     def _input(self, x: np.ndarray) -> torch.Tensor:
         if x.ndim != 4:

@@ -105,3 +105,70 @@ def test_divide_by_device_scalar_is_ieee(cuda):
     s = np.float32(0.0311)
     got = (_t(x, cuda) / ops.epilogue.scalar_f32(float(s), cuda)).cpu()
     np.testing.assert_array_equal(got.numpy(), x / s)
+
+
+def _bsr_case(cuda, M, K, N, block, sparsity, seed):
+    """Random int8 A [M, K] on the card and W [N, K] with each block x
+    block tile zeroed with probability ``sparsity``, packed as BSR."""
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    rng = np.random.default_rng(seed)
+    W = _i8(rng, (N, K))
+    nbr, nbc = -(-N // block), -(-K // block)
+    mask = np.repeat(np.repeat(rng.random((nbr, nbc)) < sparsity, block, 0),
+                     block, 1)[:N, :K]
+    W[mask] = 0
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randint(-128, 128, (M, K), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    bias = _t(rng.integers(-3000, 3000, N).astype(np.int32), cuda)
+    # acc has std ~ 74 * 74 * sqrt(K); scale it to std ~ 60
+    f = _t((rng.uniform(0.5, 1.5, N) * 0.011 / np.sqrt(K)).astype(
+        np.float32), cuda)
+    return a, ops.pack_bsr(build_bsr_int8_direct(W, block), cuda), bias, f
+
+
+@pytest.mark.parametrize("M,K,N,block", [
+    (401408, 576, 64, 128), (128, 9216, 128, 128), (5, 37, 19, 32)])
+@pytest.mark.parametrize("sparsity", [0.0, 0.7, 0.9])
+@pytest.mark.parametrize("requant", [False, True])
+def test_bsr_matmul(cuda, M, K, N, block, sparsity, requant):
+    a, packed, bias, f = _bsr_case(cuda, M, K, N, block, sparsity, M + K)
+    kw = dict(bias=bias, factors=f if requant else None, relu=requant)
+    before = _kernels.launch_counts()["bsr_matmul"]
+    got = ops.bsr_matmul_wt(a, packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["bsr_matmul"] == before + 1
+    want = ops.bsr_matmul_wt_plain(a, packed, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_bsr_matmul_empty_block_row(cuda):
+    """A block row with no stored block still writes requant(relu(bias))."""
+    a, packed, bias, f = _bsr_case(cuda, 300, 256, 384, 128, 0.0, 7)
+    dense = packed.blocks.cpu().numpy()
+    from resnet_accel_tpu_torch.sparse import BSRMatrix
+    row_ptr = packed.row_ptr.cpu().numpy()
+    keep = np.r_[0:row_ptr[1], row_ptr[2]:row_ptr[3]]  # drop block row 1
+    bsr = BSRMatrix(data=dense[keep],
+                    row_ptr=np.array([0, row_ptr[1], row_ptr[1],
+                                      row_ptr[1] + row_ptr[3] - row_ptr[2]],
+                                     np.int32),
+                    col_idx=packed.col_idx.cpu().numpy()[keep],
+                    shape=(384, 256), block_h=128, block_w=128)
+    bsr.validate()
+    packed = ops.pack_bsr(bsr, cuda)
+    got = ops.bsr_matmul_wt(a, packed, bias=bias, factors=f, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.bsr_matmul_wt_plain(
+        a, packed, bias=bias, factors=f, relu=True))
+    empty = ops.requantize(bias[128:256].clamp_min(0), f[128:256])
+    assert torch.equal(got[:, 128:256], empty.expand(300, -1))
+
+
+def test_bsr_matmul_refuses_block_shape(cuda):
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    packed = ops.pack_bsr(build_bsr_int8_direct(
+        np.ones((28, 28), np.int8), 14), cuda)
+    a = torch.ones((3, 28), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="block_h % 16"):
+        ops.bsr_matmul_wt(a, packed)

@@ -20,6 +20,7 @@ from resnet_accel_tpu.ops.matmul_int8 import matmul_int8 as j_matmul_int8
 from resnet_accel_tpu.ops.stem_fused import stem_conv_pool_nm
 from resnet_accel_tpu_torch import _kernels
 from resnet_accel_tpu_torch import ops
+from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
 
 torch.set_num_threads(2)
 
@@ -258,14 +259,23 @@ class TestDispatch:
         with pytest.raises(ValueError, match="unsupported device"):
             ops.stem_conv_pool(torch.zeros(1, 3, 8, 8, device="meta"),
                                w, v, v, 0.1)
+        packed = ops.pack_bsr(build_bsr_int8_direct(
+            np.ones((32, 32), np.int8), 32), "meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.bsr_matmul_wt(torch.zeros(4, 32, dtype=torch.int8,
+                                          device="meta"), packed)
 
     def test_plain_path_counts_no_launch(self):
         _kernels.reset_launch_counts()
         x, w, bias, f, scale = _stem_case(1, 16, 16, seed=7)
         ops.stem_conv_pool(_t(x), _t(w.reshape(64, 3, 7, 7)), _t(bias),
                            _t(f), scale)
+        W = np.random.default_rng(8).integers(-128, 128, (64, 64))
+        packed = ops.pack_bsr(build_bsr_int8_direct(W, 32), "cpu")
+        ops.bsr_matmul_wt(torch.zeros((2, 64), dtype=torch.int8), packed)
         assert _kernels.launch_counts() == {
-            "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0}
+            "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0,
+            "bsr_matmul": 0}
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
