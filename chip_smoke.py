@@ -1,12 +1,12 @@
-"""Smoke run of the PyTorch port on one CUDA card: dense and block-sparse
-INT8 ResNet-18 serving and the INT8 MNIST CNN.
+"""Smoke run of the PyTorch port on one CUDA card: dense INT8 ResNet-18
+and ResNet-50 serving, block-sparse ResNet-18 and the INT8 MNIST CNN.
 
     python3 chip_smoke.py
 
 Needs one card, nvcc and the repo checkout; exits non-zero (and prints no
 result line) without them.  Phases, each fatal on failure:
 
-1. Build the four kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
+1. Build the five kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
 2. Hold K1-K3 against their plain PyTorch versions on the card, bit for
    bit, at the dense path's shapes and values: a seed-0 ResNet-18
    (ImageNet geometry, 1000 classes), quantized and calibrated on the CPU,
@@ -19,31 +19,43 @@ result line) without them.  Phases, each fatal on failure:
    launched.  The logits must be finite, [128, 1000], bit-identical to the
    plain path on the card, and for two images bit-identical to the plain
    path on the CPU.  Prints img/s (CUDA events, median forward).
-4. Run ``python -m resnet_accel_tpu_torch infer --device cuda`` once.
-5. Sparse ResNet-18: the same seed-0 weights block-pruned at 0.7 with
+4. Run ``python -m resnet_accel_tpu_torch infer --device cuda`` once for
+   ``--model resnet18`` and once for ``--model resnet --depth 50``.
+5. ResNet-50 at full width and depth (seed 0, the same geometry and
+   batch): walks one batch through the layers and holds K1 at the stem,
+   K2 at every c1, c2 and downsample, K7 at each of the 16 c3 (with K2's
+   time on the same c3 and join beside it; the two must agree) and K3 at
+   the fc layer against their plain versions, bit for bit.
+6. Serve three batches of 128 of ResNet-50 through the engine, counts
+   reset just before: K1, K2, K3 and K7 must launch, K7 16 times a batch.
+   The logits must be finite, [128, 1000], bit-identical to the plain path
+   on the card and for two images on the CPU.  Prints img/s.
+7. Sparse ResNet-18: the ResNet-18 weights block-pruned at 0.7 with
    128 x 128 blocks, quantized, BSR attached at 128 (``min_sparsity``
    0.25).  Walks one batch of 128 through the layers and holds K4 against
    its plain version at each sparse conv, bit for bit; prints the im2col,
    K4, plain and the dense K2 times of the same pruned conv.
-6. Serve three batches of 128 through the engine on the sparse model,
+8. Serve three batches of 128 through the engine on the sparse model,
    counts reset just before: K1, K2, K3 and K4 must each launch.  The
    logits must be bit-identical to the plain path on the card, for two
    images to the plain path on the CPU, and to the dense forward of the
    same pruned model.  Prints both forwards' img/s (CUDA events, median),
    in the order dense, sparse, sparse, dense.
-7. The MNIST CNN from seeded arrays written in the reference's int8
+9. The MNIST CNN from seeded arrays written in the reference's int8
    export layout, fc1 block-pruned at 0.9, batch 128: K4 against its plain
    version at fc1; the engine's logits (counts reset just before; K2, K3
    and K4 must launch) bit-identical to the plain path on the card and on
    the CPU.
-8. ``python -m resnet_accel_tpu_torch bench --sizes 2048,4096
+10. ``python -m resnet_accel_tpu_torch bench --sizes 2048,4096
    --sparsities 0.0,0.5,0.7,0.9 --batch 512 --device cuda`` and
    ``infer --model mnist --weights <dir> --device cuda``, as subprocesses.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the three served paths; ms the kernel's time summed over the shapes of the
-path it serves); the last is ``{"ok": true, "device": {...}}``.  Every
-time printed is labelled with the card's name and power limit.
+the four served paths; ms the kernel's time summed over the shapes of the
+paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18
+for K4, ResNet-50 for K7); the last is
+``{"ok": true, "device": {...}}``.  Every time printed is labelled with
+the card's name and power limit.
 """
 
 import json
@@ -156,14 +168,16 @@ def main() -> None:
     from resnet_accel_tpu_torch import _kernels
     from resnet_accel_tpu_torch.models.mnist_cnn import (
         MNISTCNNInt8, MNISTCNNInt8Module)
+    from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
+                                                      quantize_resnet)
     from resnet_accel_tpu_torch.models.resnet18 import (
         ResNet18Int8Module, attach_bsr, init_resnet18_fp32,
         prune_params_blockwise, quantize_resnet18)
     from resnet_accel_tpu_torch.ops import (
         add_residual, avgpool_global_int8, bsr_matmul_wt, bsr_matmul_wt_plain,
-        conv2d_int8, conv2d_int8_plain, im2col_nchw, matmul_int8,
-        matmul_int8_plain, maxpool2d_int8, quantize_input, stem_conv_pool,
-        stem_conv_pool_plain)
+        conv2d_int8, conv2d_int8_plain, expand_add_int8,
+        expand_add_int8_plain, im2col_nchw, matmul_int8, matmul_int8_plain,
+        maxpool2d_int8, quantize_input, stem_conv_pool, stem_conv_pool_plain)
     from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
                                                        preprocess_mnist)
 
@@ -218,31 +232,38 @@ def main() -> None:
             fail(f"{kernel} {name}: kernel != plain (max |err| {err})")
         return want
 
-    with torch.inference_mode():
-        st = mod.stem
-        a = check("stem_fused", "stem",
-                  lambda: stem_conv_pool(x, st.weight, st.bias, st.factors,
-                                         mod.s_input),
-                  lambda: stem_conv_pool_plain(x, st.weight, st.bias,
-                                               st.factors, mod.s_input),
-                  f"x{list(x.shape)} fp32")
-        for i, (convs, rs) in enumerate(zip(mod.blocks, mod.res_scales)):
-            def conv_case(tag, cv, inp, **join):
-                shape = (f"x{list(inp.shape)} k{cv.weight.shape[-1]} "
-                         f"s{cv.stride} O{cv.weight.shape[0]}"
-                         + (" +join" if join else ""))
-                return check(
-                    "conv_int8", f"b{i}.{tag}",
-                    lambda: cv(inp, conv2d_int8, **join),
-                    lambda: cv(inp, conv2d_int8_plain, **join), shape)
-            y = conv_case("c1", convs["c1"], a)
-            r = conv_case("ds", convs["ds"], a) if "ds" in convs else a
-            a = conv_case("c2", convs["c2"], y, residual=r, res_scales=rs)
+    def stem_case(m):
+        st = m.stem
+        return check("stem_fused", "stem",
+                     lambda: stem_conv_pool(x, st.weight, st.bias,
+                                            st.factors, m.s_input),
+                     lambda: stem_conv_pool_plain(x, st.weight, st.bias,
+                                                  st.factors, m.s_input),
+                     f"x{list(x.shape)} fp32")
+
+    def conv_case(name, cv, inp, **join):
+        shape = (f"x{list(inp.shape)} k{cv.weight.shape[-1]} "
+                 f"s{cv.stride} O{cv.weight.shape[0]}"
+                 + (" +join" if join else ""))
+        return check("conv_int8", name,
+                     lambda: cv(inp, conv2d_int8, **join),
+                     lambda: cv(inp, conv2d_int8_plain, **join), shape)
+
+    def fc_case(m, a):
         p = avgpool_global_int8(a)
-        check("matmul_int8", "fc",
-              lambda: matmul_int8(p, mod.fc_w, bias=mod.fc_b),
-              lambda: matmul_int8_plain(p, mod.fc_w, bias=mod.fc_b),
-              f"a{list(p.shape)} b{list(mod.fc_w.shape)} int32")
+        return check("matmul_int8", "fc",
+                     lambda: matmul_int8(p, m.fc_w, bias=m.fc_b),
+                     lambda: matmul_int8_plain(p, m.fc_w, bias=m.fc_b),
+                     f"a{list(p.shape)} b{list(m.fc_w.shape)} int32")
+
+    with torch.inference_mode():
+        a = stem_case(mod)
+        for i, (convs, rs) in enumerate(zip(mod.blocks, mod.res_scales)):
+            y = conv_case(f"b{i}.c1", convs["c1"], a)
+            r = conv_case(f"b{i}.ds", convs["ds"], a) if "ds" in convs else a
+            a = conv_case(f"b{i}.c2", convs["c2"], y, residual=r,
+                          res_scales=rs)
+        fc_case(mod, a)
 
     # ---- 3. the dense slice through the engine ------------------------
     engine = InferenceEngine(model, device="cuda")
@@ -275,22 +296,103 @@ def main() -> None:
           f"({label})")
     del engine
 
-    # ---- 4. the CLI -----------------------------------------------------
+    # ---- 4. the CLI: ResNet-18 and ResNet-50 ----------------------------
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "x.npy")
         np.save(path, np.random.default_rng(1).normal(
             0, 1, (4, 3, HW, HW)).astype(np.float32))
-        proc = subprocess.run(
-            [sys.executable, "-m", "resnet_accel_tpu_torch", "infer",
-             "--model", "resnet18", "--input", path, "--device", "cuda",
-             "--limit", "4"], cwd=repo, capture_output=True, text=True,
-            timeout=600)
-    print(proc.stdout, end="")
-    if proc.returncode != 0 or "sample 3:" not in proc.stdout:
-        print(proc.stderr, file=sys.stderr)
-        fail(f"CLI infer exited {proc.returncode}")
+        for model_args in (["resnet18"], ["resnet", "--depth", "50"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "resnet_accel_tpu_torch", "infer",
+                 "--model", *model_args, "--input", path, "--device",
+                 "cuda", "--limit", "4"], cwd=repo, capture_output=True,
+                text=True, timeout=600)
+            print(proc.stdout, end="")
+            print(f"infer --model {' '.join(model_args)}: "
+                  f"{time.perf_counter() - t0:.1f} s  ({label})")
+            if proc.returncode != 0 or "sample 3:" not in proc.stdout:
+                print(proc.stderr, file=sys.stderr)
+                fail(f"CLI infer --model {' '.join(model_args)} exited "
+                     f"{proc.returncode}")
 
-    # ---- 5. sparse ResNet-18: K4 at every sparse conv -----------------
+    # ---- 5. ResNet-50: K7 at every c3 ---------------------------------
+    t0 = time.perf_counter()
+    model50 = quantize_resnet(init_resnet_fp32(50, seed=SEED,
+                                               num_classes=CLASSES),
+                              calib, 50, CLASSES)
+    print(f"ResNet-50 init + quantize + calibrate on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    mod50 = ResNet18Int8Module(model50, dev).eval()
+    before = {k: dict(v) for k, v in stats.items()}
+    k2_c3_ms = 0.0
+    with torch.inference_mode():
+        a = stem_case(mod50)
+        for i, (convs, rs) in enumerate(zip(mod50.blocks,
+                                            mod50.res_scales)):
+            y = conv_case(f"b{i}.c1", convs["c1"], a)
+            r = conv_case(f"b{i}.ds", convs["ds"], a) if "ds" in convs else a
+            y = conv_case(f"b{i}.c2", convs["c2"], y)
+            c3 = convs["c3"]
+            args = (y, c3.weight.reshape(c3.weight.shape[0], -1), c3.bias,
+                    c3.factors, r, *rs)
+            a = check("expand_add", f"b{i}.c3",
+                      lambda: expand_add_int8(*args),
+                      lambda: expand_add_int8_plain(*args),
+                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join")
+
+            def k2_c3():
+                return c3(y, conv2d_int8, residual=r, res_scales=rs)
+            if not torch.equal(k2_c3(), a):
+                fail(f"K2 and K7 disagree on b{i}.c3")
+            ms = time_ms(k2_c3, 10)
+            k2_c3_ms += ms
+            print(f"{'':12s} b{i}.c3  K2 (k1 +join) on the same c3 "
+                  f"{ms:.4f} ms  ({label})")
+        fc_case(mod50, a)
+    sub = {k: {f: stats[k][f] - before[k][f] for f in ("ms", "plain_ms")}
+           for k in stats}
+    print("ResNet-50 walk, summed: " + "; ".join(
+        f"{k} {sub[k]['ms']:.4f} ms (plain {sub[k]['plain_ms']:.4f})"
+        for k in ("stem_fused", "conv_int8", "expand_add", "matmul_int8"))
+        + f"; K2 on the 16 c3 {k2_c3_ms:.4f} ms  ({label})")
+    del mod50
+
+    # ---- 6. ResNet-50 through the engine ------------------------------
+    engine50 = InferenceEngine(model50, device="cuda")
+    results50, launches50 = served_launches(
+        _kernels, lambda: [engine50.run_inference(xb) for xb in batches],
+        ["stem_fused", "conv_int8", "matmul_int8", "expand_add"],
+        f"ResNet-50, {len(batches)} batches of {BATCH}")
+    if launches50["expand_add"] != 16 * len(batches):
+        fail(f"expand_add launched {launches50['expand_add']} times, not "
+             f"16 a batch")
+    with torch.inference_mode():
+        for b, (xb, res) in enumerate(zip(batches, results50)):
+            if res.logits.shape != (BATCH, CLASSES) or \
+                    not np.isfinite(res.logits).all():
+                fail(f"ResNet-50 batch {b}: logits {res.logits.shape} not "
+                     f"finite [{BATCH}, {CLASSES}]")
+            plain = engine50.module.forward_plain(
+                torch.from_numpy(xb).to(dev)).cpu().numpy()
+            if not np.array_equal(res.logits, plain):
+                fail(f"ResNet-50 batch {b}: logits differ from the plain "
+                     f"path (max |err| {np.abs(res.logits - plain).max()})")
+        cpu = ResNet18Int8Module(model50, "cpu")(
+            torch.from_numpy(batches[0][:2])).numpy()
+    if not np.array_equal(results50[0].logits[:2], cpu):
+        fail("ResNet-50 logits differ from the plain path on the CPU")
+    print(f"ResNet-50 logits: {len(batches)} x [{BATCH}, {CLASSES}] finite, "
+          f"bit-identical to the plain path on the card and (2 images) on "
+          f"the CPU; top-1 of batch 0: {results50[0].predictions[:8]}")
+    bench = engine50.benchmark(batches[0], iters=10)
+    print(f"ResNet-50 forward batch {BATCH}: {bench.latency_s * 1e3:.3f} ms "
+          f"median, {bench.images_per_s:.1f} img/s; run_inference incl. "
+          f"copies: {[round(r.images_per_s, 1) for r in results50]} img/s  "
+          f"({label})")
+    del engine50
+
+    # ---- 7. sparse ResNet-18: K4 at every sparse conv -----------------
     t0 = time.perf_counter()
     pruned = quantize_resnet18(
         prune_params_blockwise(params, sparsity=SPARSITY, block=BLOCK),
@@ -352,11 +454,11 @@ def main() -> None:
           f"{im2col_total:.4f} ms vs dense K2 {dense_total:.4f} ms; K4 "
           f"plain {s4['plain_ms']:.4f} ms  ({label})")
 
-    # ---- 6. the sparse slice through the engine -----------------------
+    # ---- 8. the sparse slice through the engine -----------------------
     sengine = InferenceEngine(sparse, device="cuda")
     sresults, slaunches = served_launches(
         _kernels, lambda: [sengine.run_inference(xb) for xb in batches],
-        list(_kernels.KERNELS),
+        ["stem_fused", "conv_int8", "matmul_int8", "bsr_matmul"],
         f"sparse ResNet-18, {len(batches)} batches of {BATCH}")
     dengine = InferenceEngine(pruned, device="cuda")
     with torch.inference_mode():
@@ -385,7 +487,7 @@ def main() -> None:
               f"{bench.images_per_s:.1f} img/s  ({label})")
     del sengine, dengine, smod, dmod
 
-    # ---- 7. the MNIST CNN -----------------------------------------------
+    # ---- 9. the MNIST CNN -----------------------------------------------
     tmp = tempfile.TemporaryDirectory()
     int8_dir = os.path.join(tmp.name, "int8")
     os.mkdir(int8_dir)
@@ -431,7 +533,7 @@ def main() -> None:
           f"the card and on the CPU; {len(np.unique(mres.predictions))} "
           f"distinct classes predicted")
 
-    # ---- 8. the CLI: bench sweep and MNIST inference -------------------
+    # ---- 10. the CLI: bench sweep and MNIST inference ------------------
     for args, expect in (
             (["bench", "--sizes", "2048,4096", "--sparsities",
               "0.0,0.5,0.7,0.9", "--batch", "512", "--device", "cuda"],
@@ -450,8 +552,8 @@ def main() -> None:
             fail(f"CLI {args[0]} exited {proc.returncode}")
     tmp.cleanup()
 
-    total = {name: launches[name] + slaunches[name] + mlaunches[name]
-             for name in _kernels.KERNELS}
+    total = {name: launches[name] + launches50[name] + slaunches[name]
+             + mlaunches[name] for name in _kernels.KERNELS}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces, "launches": total[name],

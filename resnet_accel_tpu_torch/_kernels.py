@@ -71,6 +71,10 @@ KERNELS: Dict[str, Kernel] = {
                "resnet_accel_tpu_torch/csrc/bsr_matmul.cu",
                "resnet_accel_tpu/ops/bsr_matmul.py:194",
                [_P] * 7 + [_I] * 9 + [_P]),
+        Kernel("expand_add", "expand_add_launch",
+               "resnet_accel_tpu_torch/csrc/expand_add.cu",
+               "resnet_accel_tpu/ops/expand_fused.py:49",
+               [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P]),
     )
 }
 

@@ -1,10 +1,12 @@
 """Command-line interface.
 
-    infer     run INT8 inference (ResNet-18 or the MNIST CNN) on an .npy
-              array of images
+    infer     run INT8 inference (a ResNet of the family -- 18, 34, 50,
+              101 or 152 -- or the MNIST CNN) on an .npy array of images
     bench     dense-vs-sparse GEMM sweep through the zero-skip kernel
 
-Usage: python -m resnet_accel_tpu_torch infer --model resnet18 \\
+Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
+           --input x.npy --device cuda
+       python -m resnet_accel_tpu_torch infer --model resnet18 \\
            --input x.npy --device cuda
        python -m resnet_accel_tpu_torch infer --model mnist \\
            --weights int8_dir --input digits.npy --device cuda
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -27,6 +30,9 @@ def cmd_infer(args) -> int:
                                                        preprocess_mnist)
 
     x = np.load(args.input)
+    if args.model != "resnet" and args.depth is not None:
+        print(f"warning: --depth {args.depth} is ignored with --model "
+              f"{args.model} (use --model resnet)", file=sys.stderr)
     if args.model == "mnist":
         from resnet_accel_tpu_torch.models.mnist_cnn import MNISTCNNInt8
         if args.weights is None:
@@ -36,13 +42,14 @@ def cmd_infer(args) -> int:
         if x.ndim == 3:
             x = preprocess_mnist(x.astype(np.uint8))
     else:
-        from resnet_accel_tpu_torch.models.resnet18 import (
-            init_resnet18_fp32, quantize_resnet18)
+        from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
+                                                          quantize_resnet)
         x = x.astype(np.float32)
-        fp32 = init_resnet18_fp32(seed=0, num_classes=args.num_classes,
-                                  small_input=args.small_input)
-        model = quantize_resnet18(fp32, x[:4], args.num_classes,
-                                  small_input=args.small_input)
+        depth = (args.depth or 18) if args.model == "resnet" else 18
+        fp32 = init_resnet_fp32(depth, seed=0, num_classes=args.num_classes,
+                                small_input=args.small_input)
+        model = quantize_resnet(fp32, x[:4], depth, args.num_classes,
+                                small_input=args.small_input)
     eng = InferenceEngine(model, device=args.device)
     res = eng.run_inference(x[:args.limit])
     for i, (pred, t5) in enumerate(zip(res.predictions, res.top5)):
@@ -144,8 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m resnet_accel_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pi = sub.add_parser("infer", help="run INT8 inference")
-    pi.add_argument("--model", choices=["resnet18", "mnist"],
+    pi.add_argument("--model", choices=["resnet18", "resnet", "mnist"],
                     default="resnet18")
+    pi.add_argument("--depth", type=int, default=None,
+                    choices=[18, 34, 50, 101, 152],
+                    help="ResNet depth for --model resnet (default 18)")
     pi.add_argument("--weights", default=None,
                     help="mnist: directory of the int8 export")
     pi.add_argument("--input", required=True,

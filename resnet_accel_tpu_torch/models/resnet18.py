@@ -1,7 +1,10 @@
-"""ResNet-18 INT8 inference in PyTorch.
+"""The INT8 ResNet family (ResNet-18/34/50/101/152) in PyTorch.
 
-Counterpart of ``resnet_accel_tpu/models/resnet18.py`` for basic-block
-models (ResNet-18's plan and narrower test plans):
+Counterpart of ``resnet_accel_tpu/models/resnet18.py``, which holds the
+whole family: ``STAGE_PLANS`` gives each depth's stages; 18 and 34 use
+basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
+1x1 reduce, 3x3 carrying the stride, 1x1 expand x4).
+``models/resnet.py`` dispatches on depth.
 
 - ``init_resnet18_fp32`` draws the same seeded fp32 parameters as the JAX
   package (a numpy copy, so both packages build identical weights);
@@ -16,14 +19,18 @@ models (ResNet-18's plan and narrower test plans):
 - ``ResNet18Int8Module`` is the forward (fp32 NCHW images -> fp32 logits),
   one route per layer:
 
-      stem_conv_pool (K1) -> per block: conv2d_int8 (K2) for c1, for the
-      downsample and for c2 with the residual join fused in
+      stem_conv_pool (K1) -> per block:
+        basic:      conv2d_int8 (K2) for c1, for the downsample and for
+                    c2 with the residual join fused in
+        bottleneck: conv2d_int8 (K2) for c1, c2 and the downsample, then
+                    expand_add_int8 (K7) for c3 with the residual join
       -> avgpool_global_int8 -> matmul_int8 (K3) -> x fc_deq
 
   A trunk layer with BSR weights runs im2col_nchw -> bsr_matmul_wt (K4,
-  the zero-block skip, with bias, ReLU and requant fused) instead of K2;
-  a sparse c2 then joins its residual with ``add_residual``.  The stem
-  always runs dense (the pruner never touches it).
+  the zero-block skip, with bias, ReLU and requant fused) instead of K2 or
+  K7; a sparse c2 of a basic block or c3 of a bottleneck then joins its
+  residual with ``add_residual``.  The stem always runs dense (the pruner
+  never touches it).
 
   On CUDA tensors every step above marked K runs its hand-written kernel;
   on CPU tensors the plain PyTorch versions run.  ``forward_plain`` runs
@@ -37,7 +44,7 @@ JAX package's module.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,6 +58,8 @@ from resnet_accel_tpu_torch.ops import (
     bsr_matmul_wt_plain,
     conv2d_int8,
     conv2d_int8_plain,
+    expand_add_int8,
+    expand_add_int8_plain,
     im2col_nchw,
     matmul_int8,
     matmul_int8_plain,
@@ -61,13 +70,24 @@ from resnet_accel_tpu_torch.ops import (
     stem_conv_pool,
     stem_conv_pool_plain,
 )
-from resnet_accel_tpu_torch.quant import (bias_to_int32,
+from resnet_accel_tpu_torch.quant import (bias_to_int32, pow2_scale,
                                           quantize_symmetric_per_channel)
 from resnet_accel_tpu_torch.runtime.backend import resolve_device
 from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix, build_bsr_int8_direct
 
 #: Stage plan: (out_channels, blocks, first_stride) of ResNet-18.
 STAGES = [(64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)]
+#: The family's plans (torchvision geometry); ``models/resnet.py``
+#: dispatches on depth.
+STAGE_PLANS = {
+    18: STAGES,
+    34: [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)],
+    50: [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)],
+    101: [(64, 3, 1), (128, 4, 2), (256, 23, 2), (512, 3, 2)],
+    152: [(64, 3, 1), (128, 8, 2), (256, 36, 2), (512, 3, 2)],
+}
+BOTTLENECK_DEPTHS = frozenset({50, 101, 152})
+EXPANSION = 4  # a bottleneck's output channels are out_c * EXPANSION
 BN_EPS = 1e-5
 
 
@@ -77,10 +97,11 @@ BN_EPS = 1e-5
 
 def init_resnet18_fp32(
     seed: int = 0, num_classes: int = 1000, small_input: bool = False,
-    stages=None,
+    stages=None, bottleneck: bool = False,
 ) -> Dict[str, np.ndarray]:
     """He-init fp32 parameters in torchvision's flat naming scheme, drawn
-    from ``numpy.random.default_rng(seed)`` in the JAX package's order."""
+    from ``numpy.random.default_rng(seed)`` in the JAX package's order.
+    ``stages`` and ``bottleneck`` give the family's other depths."""
     stages = STAGES if stages is None else stages
     rng = np.random.default_rng(seed)
     p: Dict[str, np.ndarray] = {}
@@ -103,17 +124,26 @@ def init_resnet18_fp32(
     bn("bn1", 64)
     in_c = 64
     for si, (out_c, blocks, stride) in enumerate(stages, start=1):
+        exp_c = out_c * EXPANSION if bottleneck else out_c
         for b in range(blocks):
             base = f"layer{si}.{b}"
-            c_in = in_c if b == 0 else out_c
-            conv(f"{base}.conv1", out_c, c_in, 3)
-            bn(f"{base}.bn1", out_c)
-            conv(f"{base}.conv2", out_c, out_c, 3)
-            bn(f"{base}.bn2", out_c)
-            if b == 0 and (stride != 1 or c_in != out_c):
-                conv(f"{base}.downsample.0", out_c, c_in, 1)
-                bn(f"{base}.downsample.1", out_c)
-        in_c = out_c
+            c_in = in_c if b == 0 else exp_c
+            if bottleneck:
+                conv(f"{base}.conv1", out_c, c_in, 1)
+                bn(f"{base}.bn1", out_c)
+                conv(f"{base}.conv2", out_c, out_c, 3)
+                bn(f"{base}.bn2", out_c)
+                conv(f"{base}.conv3", exp_c, out_c, 1)
+                bn(f"{base}.bn3", exp_c)
+            else:
+                conv(f"{base}.conv1", out_c, c_in, 3)
+                bn(f"{base}.bn1", out_c)
+                conv(f"{base}.conv2", out_c, out_c, 3)
+                bn(f"{base}.bn2", out_c)
+            if b == 0 and (stride != 1 or c_in != exp_c):
+                conv(f"{base}.downsample.0", exp_c, c_in, 1)
+                bn(f"{base}.downsample.1", exp_c)
+        in_c = exp_c
     p["fc.weight"] = (
         rng.normal(0, 0.01, (num_classes, in_c)).astype(np.float32))
     p["fc.bias"] = np.zeros(num_classes, np.float32)
@@ -132,8 +162,8 @@ def fold_bn(
     return w.astype(np.float32), b.astype(np.float32)
 
 
-def fold_all_bn(params_fp32: Dict[str, np.ndarray],
-                stages=None) -> Dict[str, np.ndarray]:
+def fold_all_bn(params_fp32: Dict[str, np.ndarray], stages=None,
+                bottleneck: bool = False) -> Dict[str, np.ndarray]:
     """Fold every BatchNorm of a flat torchvision-style dict into its conv:
     {conv: w', conv + '.bias': b'}, plus the fc passthrough."""
     stages = STAGES if stages is None else stages
@@ -153,6 +183,8 @@ def fold_all_bn(params_fp32: Dict[str, np.ndarray],
             base = f"layer{si}.{b}"
             fold(f"{base}.conv1", f"{base}.bn1")
             fold(f"{base}.conv2", f"{base}.bn2")
+            if bottleneck:
+                fold(f"{base}.conv3", f"{base}.bn3")
             if f"{base}.downsample.0.weight" in params_fp32:
                 fold(f"{base}.downsample.0", f"{base}.downsample.1")
     folded["fc.weight"] = params_fp32["fc.weight"]
@@ -196,6 +228,35 @@ class QBlock:
             yield f"b{i}.ds", self.downsample
 
 
+@dataclasses.dataclass
+class QBottleneck:
+    """Bottleneck block of ResNet-50/101/152: 1x1 reduce, 3x3 carrying
+    the stride, 1x1 expand x4 without ReLU, then the residual join."""
+
+    conv1: QConv             # 1x1 reduce, ReLU
+    conv2: QConv             # 3x3 (carries the stride), ReLU
+    conv3: QConv             # 1x1 expand, no ReLU (joined after)
+    downsample: Optional[QConv]
+    s_in: float
+    s_main: float            # scale of the conv3 output
+    s_res: float
+    s_out: float
+
+    def __post_init__(self):
+        c3 = self.conv3
+        if c3 is None or (c3.kernel, c3.stride, c3.padding, c3.relu) != (
+                1, 1, 0, False):
+            raise ValueError("a bottleneck's conv3 must be a 1x1 stride-1 "
+                             "conv without ReLU")
+
+    def named_convs(self, i: int):
+        yield f"b{i}.c1", self.conv1
+        yield f"b{i}.c2", self.conv2
+        yield f"b{i}.c3", self.conv3
+        if self.downsample is not None:
+            yield f"b{i}.ds", self.downsample
+
+
 _QCONV_ARRAYS = ("w2d", "bias", "factors")
 _QCONV_INTS = ("in_channels", "kernel", "stride", "padding", "relu")
 _QBLOCK_SCALES = ("s_in", "s_main", "s_res", "s_out")
@@ -205,8 +266,8 @@ _BSR_ARRAYS = ("data", "row_ptr", "col_idx")
 @dataclasses.dataclass
 class ResNet18Int8:
     stem: QConv
-    blocks: List[QBlock]
-    fc_w: np.ndarray         # [num_classes, 512] int8
+    blocks: List[Union[QBlock, QBottleneck]]
+    fc_w: np.ndarray         # [num_classes, 512 or 2048] int8
     fc_b: np.ndarray         # [num_classes] int32
     fc_deq: np.ndarray       # [num_classes] float32 dequant of the fc acc
     s_input: float
@@ -261,15 +322,21 @@ class ResNet18Int8:
                              **dict(zip(_QCONV_INTS[:-1], geom[:-1])),
                              relu=bool(geom[-1]), bsr=bsr)
 
+            def block(i):
+                convs = dict(conv1=qconv(f"b{i}.c1"), conv2=qconv(f"b{i}.c2"),
+                             downsample=(qconv(f"b{i}.ds")
+                                         if f"b{i}.ds.geom" in z.files
+                                         else None))
+                kind = QBlock
+                if f"b{i}.c3.geom" in z.files:      # a bottleneck
+                    kind, convs["conv3"] = QBottleneck, qconv(f"b{i}.c3")
+                return kind(**convs, **{
+                    k: float(v) for k, v in zip(_QBLOCK_SCALES,
+                                                z[f"b{i}.scales"])})
+
             small_input, num_classes, n_blocks = (
                 int(v) for v in z["meta_int"])
-            blocks = [QBlock(
-                conv1=qconv(f"b{i}.c1"), conv2=qconv(f"b{i}.c2"),
-                downsample=(qconv(f"b{i}.ds")
-                            if f"b{i}.ds.geom" in z.files else None),
-                **{k: float(v) for k, v in zip(_QBLOCK_SCALES,
-                                               z[f"b{i}.scales"])})
-                for i in range(n_blocks)]
+            blocks = [block(i) for i in range(n_blocks)]
             return cls(stem=qconv("stem"), blocks=blocks,
                        fc_w=z["fc_w"], fc_b=z["fc_b"], fc_deq=z["fc_deq"],
                        s_input=float(z["meta"][0]),
@@ -284,7 +351,7 @@ def from_reference(model) -> ResNet18Int8:
     packages compute with the very same quantized model.  A layer with the
     JAX package's packed BSR gets its ``BSRMatrix`` rebuilt from ``w2d`` at
     the same block shape, and must count the same stored and total
-    blocks.  Bottleneck blocks are not ported yet and are refused.
+    blocks.  A block with a ``conv3`` is a bottleneck.
     """
     def qconv(qc) -> QConv:
         w2d = np.asarray(qc.w2d, np.int8)
@@ -297,14 +364,14 @@ def from_reference(model) -> ResNet18Int8:
                      bsr=bsr_from_reference(w2d, getattr(qc, "bsr", None)))
 
     blocks = []
+    names = ("conv1", "conv2", "conv3", "downsample")
     for blk in model.blocks:
-        if hasattr(blk, "conv3"):
-            raise ValueError("bottleneck blocks are not ported")
-        blocks.append(QBlock(
-            conv1=qconv(blk.conv1), conv2=qconv(blk.conv2),
-            downsample=(qconv(blk.downsample)
-                        if blk.downsample is not None else None),
-            s_in=float(blk.s_in), s_main=float(blk.s_main),
+        convs = {k: getattr(blk, k) for k in names if hasattr(blk, k)}
+        convs = {k: None if qc is None else qconv(qc)
+                 for k, qc in convs.items()}
+        kind = QBottleneck if "conv3" in convs else QBlock
+        blocks.append(kind(
+            **convs, s_in=float(blk.s_in), s_main=float(blk.s_main),
             s_res=float(blk.s_res), s_out=float(blk.s_out)))
     return ResNet18Int8(
         stem=qconv(model.stem), blocks=blocks,
@@ -335,7 +402,8 @@ def bsr_from_reference(w2d: np.ndarray, kbsr) -> Optional[BSRMatrix]:
 # ==========================================================================
 
 def _float_forward_taps(params: Dict[str, np.ndarray], x: torch.Tensor,
-                        small_input: bool, stages=None):
+                        small_input: bool, stages=None,
+                        bottleneck: bool = False):
     """Inference-mode fp32 forward (BN folded) returning activation taps,
     for calibration only."""
     stages = STAGES if stages is None else stages
@@ -357,10 +425,18 @@ def _float_forward_taps(params: Dict[str, np.ndarray], x: torch.Tensor,
         for b in range(blocks):
             base = f"layer{si}.{b}"
             st = stride if b == 0 else 1
-            y = conv(f"{base}.conv1", a, st, 1).clamp_min(0)
-            taps[f"b{bi}.c1"] = y
-            y = conv(f"{base}.conv2", y, 1, 1)
-            taps[f"b{bi}.c2"] = y
+            if bottleneck:
+                y = conv(f"{base}.conv1", a, 1, 0).clamp_min(0)
+                taps[f"b{bi}.c1"] = y
+                y = conv(f"{base}.conv2", y, st, 1).clamp_min(0)
+                taps[f"b{bi}.c2"] = y
+                y = conv(f"{base}.conv3", y, 1, 0)
+                taps[f"b{bi}.c3"] = y
+            else:
+                y = conv(f"{base}.conv1", a, st, 1).clamp_min(0)
+                taps[f"b{bi}.c1"] = y
+                y = conv(f"{base}.conv2", y, 1, 1)
+                taps[f"b{bi}.c2"] = y
             if f"{base}.downsample.0" in params:
                 r = conv(f"{base}.downsample.0", a, st, 0)
                 taps[f"b{bi}.ds"] = r
@@ -382,23 +458,48 @@ def quantize_resnet18(
     num_classes: int = 1000,
     small_input: bool = False,
     stages=None,
+    bottleneck: bool = False,
+    calib_batch_size: Optional[int] = None,
+    calib_percentile: Optional[float] = None,
+    pow2_input_scale: bool = False,
 ) -> ResNet18Int8:
     """Fold BN, quantize weights per channel to int8 and calibrate the
-    activation scales (abs-max over ``calib_x``, fp32 NCHW), as the JAX
-    package does.  Calibration runs on the CPU."""
+    activation scales over ``calib_x`` (fp32 NCHW), as the JAX package
+    does.  Calibration runs on the CPU.
+
+    ``calib_batch_size`` streams ``calib_x`` in chunks of that many images
+    and keeps each tap's largest range over the chunks (None: one chunk).
+    ``calib_percentile`` (e.g. 99.9) takes each chunk's |x| percentile as
+    the range instead of the abs-max; outliers then saturate.
+    ``pow2_input_scale`` snaps the input scale up to a power of two
+    (:func:`pow2_scale`); every constant after it derives from the snapped
+    scale.  ``stages`` and ``bottleneck`` give the family's other depths.
+    """
     stages = STAGES if stages is None else stages
-    folded = fold_all_bn(params_fp32, stages=stages)
+    folded = fold_all_bn(params_fp32, stages=stages, bottleneck=bottleneck)
 
     calib_x = np.asarray(calib_x, np.float32)
+    bs = len(calib_x) if calib_batch_size is None else int(calib_batch_size)
+    if bs < 1:
+        raise ValueError(f"calib_batch_size must be >= 1, got {bs}")
+    maxima: Dict[str, float] = {}
     with torch.inference_mode():
-        _, taps = _float_forward_taps(folded, torch.from_numpy(calib_x),
-                                      small_input, stages=stages)
-        maxima = {k: float(v.abs().max()) for k, v in taps.items()}
+        for i in range(0, len(calib_x), bs):
+            _, taps = _float_forward_taps(
+                folded, torch.from_numpy(calib_x[i:i + bs]), small_input,
+                stages=stages, bottleneck=bottleneck)
+            for k, v in taps.items():
+                m = (float(np.percentile(v.abs().numpy(), calib_percentile))
+                     if calib_percentile is not None
+                     else float(v.abs().max()))
+                maxima[k] = max(maxima.get(k, 0.0), m)
 
     def scale_from_max(m):
         return max(float(m) / 127.0, 1e-12)
 
     s_input = scale_from_max(np.abs(calib_x).max())
+    if pow2_input_scale:
+        s_input = pow2_scale(s_input)
     s = {k: scale_from_max(m) for k, m in maxima.items()}
 
     def qconv(name, s_in, s_out, relu, in_c, k, stride, pad):
@@ -413,28 +514,39 @@ def quantize_resnet18(
     stem_k, stem_s, stem_p = (3, 1, 1) if small_input else (7, 2, 3)
     stem = qconv("conv1", s_input, s["stem"], True, 3, stem_k, stem_s,
                  stem_p)
-    blocks: List[QBlock] = []
+    blocks: List[Union[QBlock, QBottleneck]] = []
     bi, in_c, s_prev = 0, 64, s["stem"]
     for si, (out_c, nblocks, stride) in enumerate(stages, start=1):
+        exp_c = out_c * EXPANSION if bottleneck else out_c
         for b in range(nblocks):
             base = f"layer{si}.{b}"
             st = stride if b == 0 else 1
-            c_in = in_c if b == 0 else out_c
+            c_in = in_c if b == 0 else exp_c
             ds, s_res = None, s_prev
             if f"{base}.downsample.0" in folded:
                 ds = qconv(f"{base}.downsample.0", s_prev, s[f"b{bi}.ds"],
                            False, c_in, 1, st, 0)
                 s_res = s[f"b{bi}.ds"]
-            blocks.append(QBlock(
-                conv1=qconv(f"{base}.conv1", s_prev, s[f"b{bi}.c1"], True,
-                            c_in, 3, st, 1),
-                conv2=qconv(f"{base}.conv2", s[f"b{bi}.c1"], s[f"b{bi}.c2"],
-                            False, out_c, 3, 1, 1),
-                downsample=ds, s_in=s_prev, s_main=s[f"b{bi}.c2"],
-                s_res=s_res, s_out=s[f"b{bi}.out"]))
+            scales = dict(s_in=s_prev, s_res=s_res, s_out=s[f"b{bi}.out"])
+            if bottleneck:
+                blocks.append(QBottleneck(
+                    conv1=qconv(f"{base}.conv1", s_prev, s[f"b{bi}.c1"],
+                                True, c_in, 1, 1, 0),
+                    conv2=qconv(f"{base}.conv2", s[f"b{bi}.c1"],
+                                s[f"b{bi}.c2"], True, out_c, 3, st, 1),
+                    conv3=qconv(f"{base}.conv3", s[f"b{bi}.c2"],
+                                s[f"b{bi}.c3"], False, out_c, 1, 1, 0),
+                    downsample=ds, s_main=s[f"b{bi}.c3"], **scales))
+            else:
+                blocks.append(QBlock(
+                    conv1=qconv(f"{base}.conv1", s_prev, s[f"b{bi}.c1"],
+                                True, c_in, 3, st, 1),
+                    conv2=qconv(f"{base}.conv2", s[f"b{bi}.c1"],
+                                s[f"b{bi}.c2"], False, out_c, 3, 1, 1),
+                    downsample=ds, s_main=s[f"b{bi}.c2"], **scales))
             s_prev = s[f"b{bi}.out"]
             bi += 1
-        in_c = out_c
+        in_c = exp_c
 
     fc_q, fc_s = quantize_symmetric_per_channel(folded["fc.weight"], axis=0)
     return ResNet18Int8(
@@ -467,12 +579,16 @@ def attach_bsr(
             return qc
         return dataclasses.replace(qc, bsr=bsr)
 
-    blocks = [dataclasses.replace(
-        blk, conv1=maybe(blk.conv1, f"b{i}.c1"),
-        conv2=maybe(blk.conv2, f"b{i}.c2"),
-        downsample=(maybe(blk.downsample, f"b{i}.ds")
-                    if blk.downsample is not None else None))
-        for i, blk in enumerate(model.blocks)]
+    def convert(blk, i):
+        repl = dict(conv1=maybe(blk.conv1, f"b{i}.c1"),
+                    conv2=maybe(blk.conv2, f"b{i}.c2"),
+                    downsample=(maybe(blk.downsample, f"b{i}.ds")
+                                if blk.downsample is not None else None))
+        if isinstance(blk, QBottleneck):
+            repl["conv3"] = maybe(blk.conv3, f"b{i}.c3")
+        return dataclasses.replace(blk, **repl)
+
+    blocks = [convert(blk, i) for i, blk in enumerate(model.blocks)]
     return dataclasses.replace(model, stem=maybe(model.stem, "stem"),
                                blocks=blocks)
 
@@ -521,9 +637,11 @@ def prune_params_blockwise(
 class Int8Conv(nn.Module):
     """One quantized conv's tensors on the device, with its geometry.
 
-    With a dense ``weight`` the conv runs through ``conv`` (K2); with
-    ``weight=None`` the layer's BSR blocks are uploaded instead and it runs
-    im2col, then ``bsr`` (K4), and joins a residual, if given, after."""
+    With a dense ``weight`` the conv runs through ``conv`` (K2), or, given
+    ``expand``, as a bottleneck's 1x1 c3 joined to its residual through
+    ``expand`` (K7); with ``weight=None`` the layer's BSR blocks are
+    uploaded instead and it runs im2col, then ``bsr`` (K4), and joins a
+    residual, if given, after."""
 
     def __init__(self, qc: QConv, weight: Optional[torch.Tensor],
                  device: torch.device):
@@ -538,8 +656,12 @@ class Int8Conv(nn.Module):
             np.asarray(qc.factors, np.float32)).to(device))
 
     def forward(self, x, conv=conv2d_int8, bsr=bsr_matmul_wt, residual=None,
-                res_scales=None):
+                res_scales=None, expand=None):
         if self.packed is None:
+            if expand is not None:
+                w = self.weight.reshape(self.weight.shape[0], -1)  # [O, C]
+                return expand(x, w, self.bias, self.factors, residual,
+                              *res_scales)
             return conv(x, self.weight, self.bias, self.factors,
                         stride=self.stride, padding=self.padding,
                         relu=self.relu, residual=residual,
@@ -559,11 +681,13 @@ class Int8Conv(nn.Module):
 
 
 class ResNet18Int8Module(nn.Module):
-    """The quantized ResNet-18 forward on ``device``: fp32 NCHW images ->
-    fp32 logits, bit-exact with the golden ``forward_golden``.
+    """The quantized forward of any depth of the family on ``device``: fp32
+    NCHW images -> fp32 logits, bit-exact with the golden
+    ``forward_golden``.
 
     Weights are uploaded once, here, in the layouts the kernels read: the
-    trunk's conv weights channels-last, the fc weight as [512, classes].
+    trunk's conv weights channels-last (a 1x1 c3's is then [O, C]
+    row-major, as K7 reads it), the fc weight as [512 or 2048, classes].
     """
 
     def __init__(self, model: ResNet18Int8, device):
@@ -603,14 +727,15 @@ class ResNet18Int8Module(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The kernels on CUDA tensors, the plain versions on CPU ones."""
         return self._forward(x, stem_conv_pool, conv2d_int8, matmul_int8,
-                             bsr_matmul_wt)
+                             bsr_matmul_wt, expand_add_int8)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch versions of every kernel, on any device."""
         return self._forward(x, stem_conv_pool_plain, conv2d_int8_plain,
-                             matmul_int8_plain, bsr_matmul_wt_plain)
+                             matmul_int8_plain, bsr_matmul_wt_plain,
+                             expand_add_int8_plain)
 
-    def _forward(self, x, stem, conv, matmul, bsr):
+    def _forward(self, x, stem, conv, matmul, bsr, expand):
         if self.small_input:
             a = F.pad(quantize_input(x, self.s_input), (0, 0, 0, 0, 0, 1))
             a = self.stem(a.contiguous(memory_format=torch.channels_last),
@@ -621,7 +746,12 @@ class ResNet18Int8Module(nn.Module):
         for convs, rs in zip(self.blocks, self.res_scales):
             y = convs["c1"](a, conv, bsr)
             r = convs["ds"](a, conv, bsr) if "ds" in convs else a
-            a = convs["c2"](y, conv, bsr, residual=r, res_scales=rs)
+            if "c3" in convs:  # a bottleneck: c2, then c3 with the join
+                y = convs["c2"](y, conv, bsr)
+                a = convs["c3"](y, conv, bsr, residual=r, res_scales=rs,
+                                expand=expand)
+            else:
+                a = convs["c2"](y, conv, bsr, residual=r, res_scales=rs)
         a = avgpool_global_int8(a)
         acc = matmul(a, self.fc_w, bias=self.fc_b)
         return acc.to(torch.float32) * self.fc_deq

@@ -1,4 +1,4 @@
-"""The compute path: the four kernel wrappers with their plain versions,
+"""The compute path: the five kernel wrappers with their plain versions,
 and the int8 epilogues and pools they share."""
 
 from resnet_accel_tpu_torch.ops.bsr_matmul import (
@@ -19,6 +19,10 @@ from resnet_accel_tpu_torch.ops.epilogue import (
     quantize_input,
     requant_factors,
     requantize,
+)
+from resnet_accel_tpu_torch.ops.expand_fused import (
+    expand_add_int8,
+    expand_add_int8_plain,
 )
 from resnet_accel_tpu_torch.ops.matmul_int8 import (
     matmul_int8,
@@ -42,6 +46,8 @@ __all__ = [
     "conv2d_int8",
     "conv2d_int8_plain",
     "exact_inv_out_scale",
+    "expand_add_int8",
+    "expand_add_int8_plain",
     "im2col_nchw",
     "matmul_int8",
     "matmul_int8_plain",

@@ -1,9 +1,11 @@
-"""INT8 weight quantization (numpy), the same formulas as
-``resnet_accel_tpu/quant/quantize.py``, kept here so the port imports
+"""INT8 quantization helpers (numpy), the same formulas as
+``resnet_accel_tpu/quant/quantize.py`` and ``pow2_scale`` of
+``resnet_accel_tpu/ops/epilogue.py``, kept here so the port imports
 nothing of the JAX package."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -36,3 +38,15 @@ def bias_to_int32(
     # are zero anyway
     q = np.nan_to_num(q, nan=0.0, posinf=2**31 - 1, neginf=-2**31)
     return np.clip(q, -2**31, 2**31 - 1).astype(np.int64).astype(np.int32)
+
+
+def pow2_scale(scale: float) -> float:
+    """Snap a calibrated scale up to the next power of two (a power of two
+    stays): the representable range only grows, at the cost of at most
+    one bit of resolution, and the reciprocal is exact."""
+    s = float(np.float32(scale))
+    if s <= 0 or not math.isfinite(s):
+        raise ValueError(f"scale must be positive finite, got {scale}")
+    m, e = math.frexp(s)            # s = m * 2**e, m in [0.5, 1)
+    snapped = math.ldexp(1.0, e - 1) if m == 0.5 else math.ldexp(1.0, e)
+    return float(np.float32(snapped))

@@ -3,7 +3,8 @@
 Counterpart of ``resnet_accel_tpu/runtime/engine.py`` (``run_inference``,
 ``benchmark``, ``get_model_sparsity``, ``preprocess_imagenet``,
 ``preprocess_mnist``, ``softmax``, ``top_k``) on an explicit PyTorch
-device, for the INT8 ResNet-18 (dense or block-sparse) and the MNIST CNN.
+device, for the INT8 ResNet family (ResNet-18/34/50/101/152, dense or
+block-sparse) and the MNIST CNN.
 """
 
 from __future__ import annotations
@@ -83,8 +84,9 @@ class BenchmarkResult:
 
 
 class InferenceEngine:
-    """Upload a quantized ``ResNet18Int8`` or ``MNISTCNNInt8`` to
-    ``device`` once and run batched int8 inference on it many times."""
+    """Upload a quantized ``ResNet18Int8`` (any depth of the family) or
+    ``MNISTCNNInt8`` to ``device`` once and run batched int8 inference on
+    it many times."""
 
     def __init__(self, model: Union[ResNet18Int8, MNISTCNNInt8],
                  device="cuda"):

@@ -74,6 +74,23 @@ def test_conv(cuda, C, O, H, k, stride, join):
     assert int(want.max()) - int(want.min()) > 100
 
 
+def test_conv_saturated(cuda):
+    """Every input and weight -128 at C_in = 2048 (ResNet-50's stage-4 c1
+    is 1x1 from 2048 channels): acc = 2^25 + bias, past the integers f32
+    holds exactly, so float(acc) rounds (to nearest even) on both sides."""
+    rng = np.random.default_rng(11)
+    C, O, cl = 2048, 512, torch.channels_last
+    x = torch.full((2, C, 7, 7), -128, dtype=torch.int8,
+                   device=cuda).contiguous(memory_format=cl)
+    w = ops.pack_weight(np.full((O, C), -128, np.int8), C, 1, cuda)
+    bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, O) * 100 / 2**25).astype(np.float32),
+           cuda)
+    got = ops.conv2d_int8(x, w, bias, f, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.conv2d_int8_plain(x, w, bias, f, relu=True))
+
+
 def test_conv_refuses_nchw_input(cuda):
     x = torch.zeros(1, 4, 5, 5, dtype=torch.int8, device=cuda)
     w = ops.pack_weight(np.zeros((4, 36), np.int8), 4, 3, cuda)
@@ -172,3 +189,63 @@ def test_bsr_matmul_refuses_block_shape(cuda):
     a = torch.ones((3, 28), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="block_h % 16"):
         ops.bsr_matmul_wt(a, packed)
+
+
+# The four c3 shapes of ResNet-50 at batch 2, a single pixel (M = 1), and
+# C_in, C_out not multiples of 16 (the 4-byte copy path) with a ragged M.
+@pytest.mark.parametrize("N,C,O,H", [
+    (2, 64, 256, 56), (2, 128, 512, 28), (2, 256, 1024, 14),
+    (2, 512, 2048, 7), (1, 64, 256, 1), (3, 12, 20, 5)])
+def test_expand_add(cuda, N, C, O, H):
+    rng = np.random.default_rng(C + O + H)
+    cl = torch.channels_last
+    x = _t(_i8(rng, (N, C, H, H)), cuda).contiguous(memory_format=cl)
+    w = ops.pack_weight(_i8(rng, (O, C)), C, 1, cuda)   # [O, C, 1, 1]
+    bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
+    # acc has std ~ 74 * 74 * sqrt(C); scale it to std ~ 60
+    f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(C)).astype(
+        np.float32), cuda)
+    r = _t(_i8(rng, (N, O, H, H)), cuda).contiguous(memory_format=cl)
+    scales = (0.0213, 0.0172, 0.0311)
+    args = (x, w.reshape(O, C), bias, f, r, *scales)
+    before = _kernels.launch_counts()["expand_add"]
+    got = ops.expand_add_int8(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["expand_add"] == before + 1
+    assert got.is_contiguous(memory_format=cl)
+    want = ops.expand_add_int8_plain(*args)
+    assert torch.equal(got, want)
+    # K2 at kernel 1 with its fused join computes the same function
+    assert torch.equal(got, ops.conv2d_int8(x, w, bias, f, residual=r,
+                                            res_scales=scales))
+    if N * H * H > 1:
+        assert int(want.max()) - int(want.min()) > 100
+
+
+def test_expand_add_saturated(cuda):
+    """Every input and weight -128 at C_in = 512 (ResNet-50's stage-4 c3):
+    acc = 2^23 + bias, with biases that carry it past 2^24, where float(acc)
+    rounds."""
+    rng = np.random.default_rng(12)
+    N, C, O, H, cl = 2, 512, 2048, 7, torch.channels_last
+    x = torch.full((N, C, H, H), -128, dtype=torch.int8,
+                   device=cuda).contiguous(memory_format=cl)
+    w = torch.full((O, C), -128, dtype=torch.int8, device=cuda)
+    bias = _t(rng.integers(-2**24, 2**24, O).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, O) * 100 / 2**24).astype(np.float32),
+           cuda)
+    r = _t(_i8(rng, (N, O, H, H)), cuda).contiguous(memory_format=cl)
+    args = (x, w, bias, f, r, 0.0213, 0.0172, 0.0311)
+    got = ops.expand_add_int8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.expand_add_int8_plain(*args))
+
+
+def test_expand_add_refuses_nchw_residual(cuda):
+    x = torch.zeros(1, 8, 3, 3, dtype=torch.int8, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.zeros(16, 8, dtype=torch.int8, device=cuda)
+    v = torch.zeros(16, dtype=torch.int32, device=cuda)
+    r = torch.zeros(1, 16, 3, 3, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.expand_add_int8(x, w, v, v.float(), r, 1.0, 1.0, 1.0)

@@ -264,6 +264,8 @@ class TestDispatch:
         with pytest.raises(ValueError, match="unsupported device"):
             ops.bsr_matmul_wt(torch.zeros(4, 32, dtype=torch.int8,
                                           device="meta"), packed)
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.expand_add_int8(x, w[:, :, 0, 0], v, v, x, 1.0, 1.0, 1.0)
 
     def test_plain_path_counts_no_launch(self):
         _kernels.reset_launch_counts()
@@ -273,9 +275,13 @@ class TestDispatch:
         W = np.random.default_rng(8).integers(-128, 128, (64, 64))
         packed = ops.pack_bsr(build_bsr_int8_direct(W, 32), "cpu")
         ops.bsr_matmul_wt(torch.zeros((2, 64), dtype=torch.int8), packed)
+        z = torch.zeros((1, 8, 2, 2), dtype=torch.int8)
+        ops.expand_add_int8(z, torch.zeros((8, 8), dtype=torch.int8),
+                            torch.zeros(8, dtype=torch.int32),
+                            torch.ones(8), z, 1.0, 1.0, 1.0)
         assert _kernels.launch_counts() == {
             "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0,
-            "bsr_matmul": 0}
+            "bsr_matmul": 0, "expand_add": 0}
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))

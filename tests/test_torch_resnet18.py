@@ -133,12 +133,21 @@ class TestQuantize:
             P.ResNet18Int8Module(port, "cpu")(x).numpy())
 
     def test_from_reference_refuses_bottleneck(self):
-        class Blk:
-            conv3 = None
-        fake = dataclasses.make_dataclass("M", ["blocks", "stem"])(
-            [Blk()], None)
+        """A bottleneck comes across as a ``QBottleneck`` only when its c3
+        is the 1x1 stride-1 conv without ReLU that the expand kernel
+        computes; any other c3 is refused."""
+        stages = [(16, 1, 1)]
+        p = J.init_resnet18_fp32(seed=0, num_classes=4, small_input=True,
+                                 stages=stages, bottleneck=True)
+        calib = np.random.default_rng(0).normal(0, 1, (1, 3, 8, 8))
+        ref = J.quantize_resnet18(p, calib, 4, small_input=True,
+                                  stages=stages, bottleneck=True)
+        assert isinstance(P.from_reference(ref).blocks[0], P.QBottleneck)
+        blk = ref.blocks[0]
+        bad = dataclasses.replace(
+            ref, blocks=[dataclasses.replace(blk, conv3=blk.conv2)])
         with pytest.raises(ValueError, match="bottleneck"):
-            P.from_reference(fake)
+            P.from_reference(bad)
 
 
 class TestForward:
