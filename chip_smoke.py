@@ -1,19 +1,21 @@
 """Smoke run of the PyTorch port on one CUDA card: dense INT8 ResNet-18
-and ResNet-50 serving, block-sparse ResNet-18 and the INT8 MNIST CNN.
+and ResNet-50 serving, block-sparse ResNet-18, the INT8 MNIST CNN and
+greedy generation on the INT8 block-sparse decoder LM.
 
     python3 chip_smoke.py
 
 Needs one card, nvcc and the repo checkout; exits non-zero (and prints no
 result line) without them.  Phases, each fatal on failure:
 
-1. Build the five kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
+1. Build the six kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
 2. Hold K1-K3 against their plain PyTorch versions on the card, bit for
    bit, at the dense path's shapes and values: a seed-0 ResNet-18
    (ImageNet geometry, 1000 classes), quantized and calibrated on the CPU,
    serving a batch of 128 images of 224 x 224 -- the stem (K1), every conv
    of the trunk including the residual joins (K2) and the fc layer (K3).
    Prints the median kernel and plain times (CUDA events; device time, the
-   host's launch time left out).
+   host's launch time left out), each call's bound and, for K3, the time
+   of ``torch._int_mm`` plus the bias.
 3. Serve three batches of 128 through ``InferenceEngine(device="cuda")``
    with every launch count reset to 0 just before; K1-K3 must each have
    launched.  The logits must be finite, [128, 1000], bit-identical to the
@@ -34,7 +36,8 @@ result line) without them.  Phases, each fatal on failure:
    128 x 128 blocks, quantized, BSR attached at 128 (``min_sparsity``
    0.25).  Walks one batch of 128 through the layers and holds K4 against
    its plain version at each sparse conv, bit for bit; prints the im2col,
-   K4, plain and the dense K2 times of the same pruned conv.
+   K4, plain, ``torch._int_mm`` on the densified weight and the dense K2
+   times of the same pruned conv.
 8. Serve three batches of 128 through the engine on the sparse model,
    counts reset just before: K1, K2, K3 and K4 must each launch.  The
    logits must be bit-identical to the plain path on the card, for two
@@ -49,11 +52,32 @@ result line) without them.  Phases, each fatal on failure:
 10. ``python -m resnet_accel_tpu_torch bench --sizes 2048,4096
    --sparsities 0.0,0.5,0.7,0.9 --batch 512 --device cuda`` and
    ``infer --model mnist --weights <dir> --device cuda``, as subprocesses.
+11. The repo's serving LM (``LM_CFG``: d_model 512, 8 heads, d_ff 1024,
+   4 layers, vocab 256, max_len 1024, 80 % sparse 8 x 8 blocks), seed 0,
+   calibrated on 16 seeded tokens on the CPU; a seeded 640-token prompt
+   and eight more.
+12. K5 against its plain version within rtol = atol = 2e-5 at each of the
+   four layers' q, k, v of the prefill, for one prompt (BH 8) and for the
+   eight (BH 64), T 640, dh 64, causal; beside it the time and error of
+   ``scaled_dot_product_attention`` (float32, TF32 off), which the port
+   never calls.
+13. ``generate(flash=True)`` 640 -> 256 for the one prompt and for the
+   eight batched, counts reset just before: K5 must launch 4 times a
+   prefill.  The tokens must equal the plain path on the card, each
+   batched row its own single-prompt run, and the prefill's logits must be
+   finite and within 1e-4 of the plain path.  Prints prefill ms, decode ms
+   a step and tokens/s, and a ``torch.profiler`` breakdown of one prefill
+   and of 32 decode steps.
+14. ``generate --flash`` as a subprocess with the same model and prompt:
+   its tokens must equal ``generate(flash=True)``'s.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the four served paths; ms the kernel's time summed over the shapes of the
-paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18
-for K4, ResNet-50 for K7); the last is
+the five served paths; ms the kernel's time summed over the shapes of the
+paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
+K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5;
+bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
+and operations / the peak of their type; library_ms the PyTorch call timed
+beside the kernel, summed the same way, or null); the last is
 ``{"ok": true, "device": {...}}``.  Every time printed is labelled with
 the card's name and power limit.
 """
@@ -78,11 +102,27 @@ BLOCK = 128
 MNIST_FC1_SPARSITY = 0.9
 MNIST_SHAPES = {"conv1": (32, 1, 3, 3), "conv2": (64, 32, 3, 3),
                 "fc1": (128, 9216), "fc2": (10, 128)}
+# The repo's serving LM (tools/lm_corpus.py, tools/spec_bench.py): d_model
+# 512, 8 heads, d_ff 1024, 4 layers, vocab 256, max_len 1024, 8 x 8 blocks,
+# 80 % block sparsity; served with a 640-token prompt and 256 new tokens.
+LM_CFG = dict(vocab=256, d_model=512, n_heads=8, d_ff=1024, n_layers=4,
+              max_len=1024, sparsity=0.8, block=8)
+PROMPT, N_NEW, LM_BATCH = 640, 256, 8
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+def bsr_work(a, pk, out):
+    """Bytes and int8 operations of one K4 call: A, the stored blocks and
+    their indices, bias and factors in, the output out; the products of
+    the stored blocks only."""
+    nbytes = (a.numel() + pk.blocks.numel() + 4 * (pk.row_ptr.numel()
+              + pk.col_idx.numel()) + 8 * pk.n_out
+              + out.numel() * out.element_size())
+    return nbytes, 2 * a.shape[0] * pk.blocks.numel(), "int8"
 
 
 def card_label() -> str:
@@ -118,7 +158,46 @@ def time_ms(fn, iters: int) -> float:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.numel() == 0:
+        return 0.0
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+#: The card's published peaks (NVIDIA's H100 SXM data sheet; dense rates at
+#: the 700 W limit): device memory, int8 tensor cores, float32 FFMA.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "fp32": 67e12}
+
+
+def bound_ms(nbytes: float, ops: float, kind: str):
+    """The least time the card could take to move ``nbytes`` (each input
+    read once, each output written once) and to do ``ops`` operations of
+    ``kind``: (bytes ms, operations ms)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+
+
+def int_mm_call(a: torch.Tensor, w_nk: torch.Tensor):
+    """``torch._int_mm`` of int8 a [M, K] and the int8 weight w [N, K] (as
+    its column-major transpose), or None where cuBLAS's int8 GEMM does not
+    take the shape (M > 16, K and N multiples of 8)."""
+    M, K = a.shape
+    if M <= 16 or K % 8 or w_nk.shape[0] % 8 or not a.is_contiguous():
+        return None
+    wt = w_nk.contiguous().t()
+    return lambda: torch._int_mm(a, wt)
+
+
+def densify(pk) -> torch.Tensor:
+    """The dense int8 weight [n_out, k_dim] of a ``PackedBSR``."""
+    bh, bw = pk.block_h, pk.block_w
+    nbr, nbc = pk.n_padded // bh, pk.k_padded // bw
+    rows = torch.repeat_interleave(
+        torch.arange(nbr, device=pk.blocks.device), pk.row_ptr.diff().long())
+    grid = torch.zeros((nbr, nbc, bh, bw), dtype=torch.int8,
+                       device=pk.blocks.device)
+    grid[rows, pk.col_idx.long()] = pk.blocks
+    return grid.permute(0, 2, 1, 3).reshape(pk.n_padded, pk.k_padded)[
+        :pk.n_out, :pk.k_dim]
 
 
 def served_launches(_kernels, run, must: list, what: str) -> dict:
@@ -166,6 +245,7 @@ def main() -> None:
         fail(f"no resnet_accel_tpu_torch package beside {__file__}")
     sys.path.insert(0, repo)
     from resnet_accel_tpu_torch import _kernels
+    from resnet_accel_tpu_torch.models.lm import TransformerLMInt8
     from resnet_accel_tpu_torch.models.mnist_cnn import (
         MNISTCNNInt8, MNISTCNNInt8Module)
     from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
@@ -176,7 +256,8 @@ def main() -> None:
     from resnet_accel_tpu_torch.ops import (
         add_residual, avgpool_global_int8, bsr_matmul_wt, bsr_matmul_wt_plain,
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
-        expand_add_int8_plain, im2col_nchw, matmul_int8, matmul_int8_plain,
+        expand_add_int8_plain, flash_attention, flash_attention_plain,
+        im2col_nchw, matmul_int8, matmul_int8_plain,
         maxpool2d_int8, quantize_input, stem_conv_pool, stem_conv_pool_plain)
     from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
                                                        preprocess_mnist)
@@ -210,51 +291,103 @@ def main() -> None:
     x = torch.from_numpy(batches[0]).to(dev)
 
     # ---- 2. each kernel against its plain version ---------------------
-    stats = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0}
+    stats = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "bytes_ms": 0.0,
+                 "ops_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
              for k in _kernels.KERNELS}
 
-    def check(kernel, name, fn, plain, shape, iters=10, plain_iters=3,
-              timed=True):
-        """Kernel vs plain, bit for bit; with ``timed`` their times add to
-        the kernel's totals."""
+    def check(kernel, name, fn, plain, shape, work, library=None, iters=10,
+              plain_iters=3, timed=True, tol=0.0):
+        """Kernel vs plain: bit for bit, or within rtol = atol = ``tol``.
+        ``work(out)`` gives (bytes, operations, their type) of one call,
+        for the bound; ``library`` is one PyTorch call computing the same
+        function, timed beside the kernel.  With ``timed`` the times and
+        bounds add to the kernel's totals."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         s = stats[kernel]
         s["err"] = max(s["err"], err)
         ms, pms = time_ms(fn, iters), time_ms(plain, plain_iters)
+        b_ms, o_ms = bound_ms(*work(want))
+        lib = ""
+        lms = None
+        if library is not None:
+            try:
+                lms = time_ms(library, iters)
+                lib = f"  library {lms:.4f} ms"
+            except RuntimeError as e:   # a shape the library refuses
+                lib = f"  library refused: {str(e).splitlines()[0]}"
         if timed:
             s["ms"] += ms
             s["plain_ms"] += pms
-        print(f"{kernel:12s} {name:6s} {shape:42s} equal={err == 0.0} "
-              f"kernel {ms:.4f} ms  plain {pms:.4f} ms  ({label})")
-        if err != 0.0 or got.shape != want.shape:
+            s["bytes_ms"] += b_ms
+            s["ops_ms"] += o_ms
+            s["bound_ms"] += max(b_ms, o_ms)
+            if lms is not None:
+                s["library_ms"] = (s["library_ms"] or 0.0) + lms
+        ok = (got.shape == want.shape and got.dtype == want.dtype and
+              (torch.equal(got, want) if tol == 0.0 else
+               torch.allclose(got, want, rtol=tol, atol=tol)))
+        print(f"{kernel:12s} {name:6s} {shape:42s} "
+              f"{'equal' if tol == 0.0 else f'within {tol:g}'}={ok} "
+              f"(max |err| {err:.3g}) kernel {ms:.4f} ms  plain {pms:.4f} ms"
+              f"  bound {max(b_ms, o_ms):.4f} ms{lib}  ({label})")
+        if not ok:
             fail(f"{kernel} {name}: kernel != plain (max |err| {err})")
         return want
 
+    def summary(title, before, names):
+        """Each kernel's totals since ``before`` (a copy of ``stats``)."""
+        def d(k, f):
+            return (stats[k][f] or 0.0) - (before[k][f] or 0.0)
+        print(f"{title}, summed: " + "; ".join(
+            f"{k} {d(k, 'ms'):.4f} ms (plain {d(k, 'plain_ms'):.4f}, "
+            f"bound {d(k, 'bound_ms'):.4f}"
+            + (f", library {d(k, 'library_ms'):.4f}"
+               if stats[k]["library_ms"] is not None else "") + ")"
+            for k in names) + f"  ({label})")
+
     def stem_case(m):
         st = m.stem
+        N, _, H, W = x.shape
+        Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1   # the 7x7/s2/p3 conv
+
+        def work(out):
+            return (x.numel() * 4 + st.weight.numel() + 8 * 64 + out.numel(),
+                    2 * N * 64 * Hc * Wc * st.weight[0].numel(), "int8")
         return check("stem_fused", "stem",
                      lambda: stem_conv_pool(x, st.weight, st.bias,
                                             st.factors, m.s_input),
                      lambda: stem_conv_pool_plain(x, st.weight, st.bias,
                                                   st.factors, m.s_input),
-                     f"x{list(x.shape)} fp32")
+                     f"x{list(x.shape)} fp32", work)
 
     def conv_case(name, cv, inp, **join):
         shape = (f"x{list(inp.shape)} k{cv.weight.shape[-1]} "
                  f"s{cv.stride} O{cv.weight.shape[0]}"
                  + (" +join" if join else ""))
+
+        def work(out):
+            res = join["residual"].numel() if join else 0
+            return (inp.numel() + cv.weight.numel() + 8 * out.shape[1]
+                    + res + out.numel(),
+                    2 * out.numel() * cv.weight[0].numel(), "int8")
         return check("conv_int8", name,
                      lambda: cv(inp, conv2d_int8, **join),
-                     lambda: cv(inp, conv2d_int8_plain, **join), shape)
+                     lambda: cv(inp, conv2d_int8_plain, **join), shape, work)
 
     def fc_case(m, a):
         p = avgpool_global_int8(a)
+        (M, K), N = p.shape, m.fc_w.shape[1]
+        mm = int_mm_call(p, m.fc_w.t())
+
+        def work(out):
+            return M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N, "int8"
         return check("matmul_int8", "fc",
                      lambda: matmul_int8(p, m.fc_w, bias=m.fc_b),
                      lambda: matmul_int8_plain(p, m.fc_w, bias=m.fc_b),
-                     f"a{list(p.shape)} b{list(m.fc_w.shape)} int32")
+                     f"a{list(p.shape)} b{list(m.fc_w.shape)} int32", work,
+                     library=None if mm is None else lambda: mm() + m.fc_b)
 
     with torch.inference_mode():
         a = stem_case(mod)
@@ -264,6 +397,9 @@ def main() -> None:
             a = conv_case(f"b{i}.c2", convs["c2"], y, residual=r,
                           res_scales=rs)
         fc_case(mod, a)
+    summary("ResNet-18 walk", {k: dict.fromkeys(v, 0.0)
+                               for k, v in stats.items()},
+            ("stem_fused", "conv_int8", "matmul_int8"))
 
     # ---- 3. the dense slice through the engine ------------------------
     engine = InferenceEngine(model, device="cuda")
@@ -336,10 +472,15 @@ def main() -> None:
             c3 = convs["c3"]
             args = (y, c3.weight.reshape(c3.weight.shape[0], -1), c3.bias,
                     c3.factors, r, *rs)
+
+            def work(out):
+                O, C = args[1].shape
+                return (y.numel() + O * C + 8 * O + r.numel() + out.numel(),
+                        2 * out.numel() * C, "int8")
             a = check("expand_add", f"b{i}.c3",
                       lambda: expand_add_int8(*args),
                       lambda: expand_add_int8_plain(*args),
-                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join")
+                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join", work)
 
             def k2_c3():
                 return c3(y, conv2d_int8, residual=r, res_scales=rs)
@@ -350,12 +491,9 @@ def main() -> None:
             print(f"{'':12s} b{i}.c3  K2 (k1 +join) on the same c3 "
                   f"{ms:.4f} ms  ({label})")
         fc_case(mod50, a)
-    sub = {k: {f: stats[k][f] - before[k][f] for f in ("ms", "plain_ms")}
-           for k in stats}
-    print("ResNet-50 walk, summed: " + "; ".join(
-        f"{k} {sub[k]['ms']:.4f} ms (plain {sub[k]['plain_ms']:.4f})"
-        for k in ("stem_fused", "conv_int8", "expand_add", "matmul_int8"))
-        + f"; K2 on the 16 c3 {k2_c3_ms:.4f} ms  ({label})")
+    summary("ResNet-50 walk", before,
+            ("stem_fused", "conv_int8", "expand_add", "matmul_int8"))
+    print(f"K2 on the 16 c3 {k2_c3_ms:.4f} ms  ({label})")
     del mod50
 
     # ---- 6. ResNet-50 through the engine ------------------------------
@@ -433,7 +571,9 @@ def main() -> None:
                           lambda: bsr_matmul_wt(A, pk, **kw),
                           lambda: bsr_matmul_wt_plain(A, pk, **kw),
                           f"A{list(A.shape)} N{pk.n_out} "
-                          f"{pk.nnz_source}/{pk.total_source} blocks")
+                          f"{pk.nnz_source}/{pk.total_source} blocks",
+                          lambda out: bsr_work(A, pk, out),
+                          library=int_mm_call(A, densify(pk)))
                 d_ms = time_ms(lambda: dcv(inp, conv2d_int8, **join), 10)
                 im2col_total += im_ms
                 dense_total += d_ms
@@ -450,6 +590,9 @@ def main() -> None:
             r = run("ds", a) if "ds" in convs else a
             a = run("c2", y, residual=r, res_scales=rs)
     s4 = stats["bsr_matmul"]
+    summary(f"sparse convs ({len(bsr_of)})", {k: dict.fromkeys(v, 0.0)
+                                              for k, v in stats.items()},
+            ("bsr_matmul",))
     print(f"sparse convs ({len(bsr_of)}): K4 {s4['ms']:.4f} ms + im2col "
           f"{im2col_total:.4f} ms vs dense K2 {dense_total:.4f} ms; K4 "
           f"plain {s4['plain_ms']:.4f} ms  ({label})")
@@ -516,7 +659,8 @@ def main() -> None:
               lambda: bsr_matmul_wt_plain(f, pk, **kw),
               f"A{list(f.shape)} N{pk.n_out} "
               f"{pk.nnz_source}/{pk.total_source} blocks (MNIST)",
-              timed=False)
+              lambda out: bsr_work(f, pk, out),
+              library=int_mm_call(f, densify(pk)), timed=False)
     mres, mlaunches = served_launches(
         _kernels, lambda: mengine.run_inference(xm),
         ["conv_int8", "matmul_int8", "bsr_matmul"],
@@ -552,14 +696,219 @@ def main() -> None:
             fail(f"CLI {args[0]} exited {proc.returncode}")
     tmp.cleanup()
 
+    # ---- 11. the serving LM, seeded and calibrated on the CPU ---------
+    t0 = time.perf_counter()
+    lm = TransformerLMInt8.from_random(**LM_CFG, seed=SEED)
+    calib = np.random.default_rng(SEED).integers(
+        0, LM_CFG["vocab"], min(16, LM_CFG["max_len"])).astype(np.int32)
+    lm_scales = lm.calibrate(calib)
+    print(f"LM {LM_CFG} seed {SEED}: init + calibrate on the CPU "
+          f"{time.perf_counter() - t0:.1f} s; sparsity "
+          f"{lm.blocks[0].sparsity_report()}")
+    prng = np.random.default_rng(SEED + 2)
+    prompt = prng.integers(0, LM_CFG["vocab"], PROMPT).astype(np.int32)
+    prompts = prng.integers(0, LM_CFG["vocab"],
+                            (LM_BATCH, PROMPT)).astype(np.int32)
+    lmod = lm.module("cuda")
+    sc = lmod.prepare_scales(lm_scales)
+
+    # ---- 12. K5 at the prefill's shapes, every layer ------------------
+    H, dh = LM_CFG["n_heads"], LM_CFG["d_model"] // LM_CFG["n_heads"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flips = {}      # int8 ctx values rounded apart, by prompt batch
+    with torch.inference_mode():
+        for toks, timed in ((prompt, True), (prompts, False)):
+            flips[toks.ndim] = 0
+            x = lmod.embed[lmod._tokens(toks)] + lmod.pos[:PROMPT]
+            for i, blk in enumerate(lmod.blocks):
+                qh, kh, vh = (blk._heads(t).reshape(-1, PROMPT, dh)
+                              .contiguous() for t in blk.qkv_project(x, sc[i]))
+                BH = qh.shape[0]
+
+                def work(out, BH=BH):
+                    pairs = PROMPT * (PROMPT + 1) // 2        # causal
+                    return 4 * qh.numel() * 4, 4 * BH * dh * pairs, "fp32"
+                want = check(
+                    "flash_attention", f"l{i}",
+                    lambda: flash_attention(qh, kh, vh, causal=True),
+                    lambda: flash_attention_plain(qh, kh, vh, causal=True),
+                    f"q,k,v [{BH}, {PROMPT}, {dh}] fp32 causal", work,
+                    library=lambda: sdpa(qh, kh, vh, is_causal=True),
+                    timed=timed, tol=2e-5)
+                # the wo projection quantizes ctx: count the int8 values
+                # that K5's and the plain version's rounding put apart
+                apart = int((blk._quant(flash_attention(
+                    qh, kh, vh, causal=True), sc[i]["ctx"])
+                    != blk._quant(want, sc[i]["ctx"])).sum())
+                flips[toks.ndim] += apart
+                print(f"{'':12s} l{i}     SDPA max |err| vs plain "
+                      f"{max_abs_err(sdpa(qh, kh, vh, is_causal=True), want):.3g}"
+                      f"; int8 ctx values K5 and plain quantize apart: "
+                      f"{apart} of {want.numel()}")
+                x = blk(x, causal=True, scales=sc[i], flash=True, plain=True)
+
+    summary(f"K5 over one prompt's prefill (BH {H}, 4 layers)",
+            {k: dict.fromkeys(v, 0.0) for k, v in stats.items()},
+            ("flash_attention",))
+
+    # ---- 13. greedy generation through the module ----------------------
+    def serve_lm():
+        return (lmod.generate(prompt, N_NEW, lm_scales, flash=True),
+                lmod.generate(prompts, N_NEW, lm_scales, flash=True,
+                              batched=True))
+    t0 = time.perf_counter()
+    (toks1, toks8), llaunches = served_launches(
+        _kernels, serve_lm, ["flash_attention"],
+        f"LM generate(flash=True): 1 prompt and {LM_BATCH} batched, "
+        f"{PROMPT} -> {N_NEW}")
+    print(f"both generate calls: {time.perf_counter() - t0:.1f} s")
+    if llaunches["flash_attention"] != 2 * LM_CFG["n_layers"]:
+        fail(f"flash_attention launched {llaunches['flash_attention']} "
+             f"times, not {LM_CFG['n_layers']} a prefill")
+    if toks1.shape != (N_NEW,) or toks8.shape != (LM_BATCH, N_NEW) or \
+            toks8.min() < 0 or toks8.max() >= LM_CFG["vocab"]:
+        fail(f"generated tokens of shape {toks1.shape}, {toks8.shape}")
+    plain1 = lmod.generate(prompt, N_NEW, lm_scales, flash=True, plain=True)
+    plain8 = lmod.generate(prompts, N_NEW, lm_scales, flash=True,
+                           batched=True, plain=True)
+    if not (np.array_equal(toks1, plain1) and np.array_equal(toks8, plain8)):
+        fail("generated tokens differ from the plain path on the card")
+    for b in range(LM_BATCH):
+        if not np.array_equal(toks8[b], lmod.generate(
+                prompts[b], N_NEW, lm_scales, flash=True)):
+            fail(f"batched row {b} differs from its single-prompt run")
+    # The prefill's logits (its readout, the last row) against the plain
+    # path's: within 1e-4 unless K5's and the plain version's float32 sums
+    # rounded some attention output to neighbouring int8 values at the wo
+    # projection (counted in phase 12 on the same inputs); such a value
+    # moves every later activation by a whole int8 step, so then the
+    # logits are only reported.  Rows of the teacher-forced forward too.
+    for toks, what in ((prompt, "1 prompt"), (prompts, f"{LM_BATCH}")):
+        got = lmod.prefill(toks, sc, flash=True)[0]
+        ref = lmod.prefill(toks, sc, flash=True, plain=True)[0]
+        err = max_abs_err(got, ref)
+        within = torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
+        if got.shape != ref.shape or got.shape[-1] != LM_CFG["vocab"] or \
+                not torch.isfinite(got).all():
+            fail(f"prefill logits {tuple(got.shape)} not finite")
+        if not within and flips[toks.ndim] == 0:
+            fail(f"prefill logits differ from the plain path (max |err| "
+                 f"{err}) with no int8 value rounded apart")
+        print(f"prefill logits, {what}: max |err| vs plain {err:.3g} "
+              f"({'within' if within else 'beyond'} 1e-4; "
+              f"{flips[toks.ndim]} int8 ctx values rounded apart)")
+    logits = lmod.forward(prompt, lm_scales, flash=True)
+    logits_p = lmod.forward(prompt, lm_scales, flash=True, plain=True)
+    close = torch.isclose(logits, logits_p, rtol=1e-4, atol=1e-4).all(-1)
+    if not torch.isfinite(logits).all():
+        fail("forward logits are not finite")
+    print(f"LM tokens equal the plain path on the card (1 prompt and "
+          f"{LM_BATCH} batched; each batched row equals its own run); "
+          f"teacher-forced forward [{PROMPT}, {LM_CFG['vocab']}]: "
+          f"{int(close.sum())} of {PROMPT} rows within 1e-4 of the plain "
+          f"path, max |err| {max_abs_err(logits, logits_p):.3g}; first "
+          f"tokens {toks1[:12].tolist()}, {len(np.unique(toks8))} distinct "
+          f"in the batch")
+
+    def timed_generate(toks):
+        """Host clock to a sync, medians of 3: the prefill, the N_NEW - 1
+        decode steps after it (per step) and the whole generation."""
+        pre, dec = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, caches = lmod.prefill(toks, sc, flash=True)
+            tok = last.argmax(dim=-1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(N_NEW - 1):
+                logits, caches = lmod.decode_step(caches, tok, sc)
+                tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            pre.append((t1 - t0) * 1e3)
+            dec.append((time.perf_counter() - t1) * 1e3)
+        pre_ms, dec_ms = statistics.median(pre), statistics.median(dec)
+        return pre_ms, dec_ms / (N_NEW - 1), (pre_ms + dec_ms) / 1e3
+    with torch.inference_mode():
+        for toks, B in ((prompt, 1), (prompts, LM_BATCH)):
+            pre_ms, step_ms, total_s = timed_generate(toks)
+            print(f"LM generate, batch {B}, {PROMPT} -> {N_NEW}: prefill "
+                  f"{pre_ms:.3f} ms, decode {step_ms:.3f} ms a step, "
+                  f"{B * N_NEW / total_s:.1f} tokens/s (host clock, median "
+                  f"of 3)  ({label})")
+
+    def profiled(what, fn):
+        """Device time by kernel under torch.profiler for one ``fn()``
+        (the device's own events only: an operator's row repeats the time
+        of the kernels it launched)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and e.self_device_time_total > 0]
+        busy = sum(r[1] for r in rows)
+        if busy == 0:
+            print(f"profile, {what}: no device time recorded (not measured)")
+            return
+        print(f"profile, {what}: span {span:.3f} ms, device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / span:.4f}  ({label})")
+        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
+            print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f} %  {n:5d}x  "
+                  f"{key[:90]}")
+    with torch.inference_mode():
+        last, caches = lmod.prefill(prompt, sc, flash=True)
+        profiled(f"prefill of {PROMPT} tokens (batch 1)",
+                 lambda: lmod.prefill(prompt, sc, flash=True))
+        tok = last.argmax(dim=-1)
+
+        def decode32():
+            nonlocal caches, tok
+            for _ in range(32):
+                logits, caches = lmod.decode_step(caches, tok, sc)
+                tok = logits.argmax(dim=-1)
+        profiled("32 decode steps (batch 1)", decode32)
+
+    # ---- 14. the CLI: generate --flash ---------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "resnet_accel_tpu_torch", "generate",
+         "--flash", "--prompt", ",".join(map(str, prompt.tolist())),
+         "--n-new", str(N_NEW), "--layers", str(LM_CFG["n_layers"]),
+         "--d-model", str(LM_CFG["d_model"]),
+         "--heads", str(LM_CFG["n_heads"]), "--vocab", str(LM_CFG["vocab"]),
+         "--max-len", str(LM_CFG["max_len"]),
+         "--sparsity", str(LM_CFG["sparsity"]), "--seed", str(SEED)],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    print("\n".join(ln[:160] for ln in proc.stdout.splitlines()))
+    print(f"generate --flash: {time.perf_counter() - t0:.1f} s  ({label})")
+    if proc.returncode != 0 or \
+            f"generated: {toks1.tolist()}" not in proc.stdout:
+        print(proc.stderr, file=sys.stderr)
+        fail(f"CLI generate --flash exited {proc.returncode} or its tokens "
+             f"differ from generate(flash=True)")
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
-             + mlaunches[name] for name in _kernels.KERNELS}
+             + mlaunches[name] + llaunches[name] for name in _kernels.KERNELS}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    kernels = [{"name": name, "route": "cuda", "source": k.source,
-                "replaces": k.replaces, "launches": total[name],
-                "max_abs_err": stats[name]["err"],
-                "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-               for name, k in _kernels.KERNELS.items()]
+    kernels = []
+    for name, k in _kernels.KERNELS.items():
+        st = stats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": total[name],
+            "max_abs_err": st["err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": ("bytes" if st["bytes_ms"] >= st["ops_ms"]
+                         else "operations"),
+            "library_ms": st["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

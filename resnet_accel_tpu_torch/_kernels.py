@@ -75,6 +75,10 @@ KERNELS: Dict[str, Kernel] = {
                "resnet_accel_tpu_torch/csrc/expand_add.cu",
                "resnet_accel_tpu/ops/expand_fused.py:49",
                [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P]),
+        Kernel("flash_attention", "flash_attention_launch",
+               "resnet_accel_tpu_torch/csrc/flash_attention.cu",
+               "resnet_accel_tpu/ops/flash_attention.py:43",
+               [_P] * 4 + [_I] * 4 + [_F, _P]),
     )
 }
 

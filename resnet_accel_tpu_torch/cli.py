@@ -3,14 +3,17 @@
     infer     run INT8 inference (a ResNet of the family -- 18, 34, 50,
               101 or 152 -- or the MNIST CNN) on an .npy array of images
     bench     dense-vs-sparse GEMM sweep through the zero-skip kernel
+    generate  greedy decoding on the INT8 block-sparse decoder LM
+
+Every subcommand runs on the card unless ``--device cpu`` asks for the CPU.
 
 Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
-           --input x.npy --device cuda
-       python -m resnet_accel_tpu_torch infer --model resnet18 \\
-           --input x.npy --device cuda
+           --input x.npy
+       python -m resnet_accel_tpu_torch infer --model resnet18 --input x.npy
        python -m resnet_accel_tpu_torch infer --model mnist \\
-           --weights int8_dir --input digits.npy --device cuda
-       python -m resnet_accel_tpu_torch bench --device cuda
+           --weights int8_dir --input digits.npy
+       python -m resnet_accel_tpu_torch bench
+       python -m resnet_accel_tpu_torch generate --flash --prompt 1,2,3
 """
 
 from __future__ import annotations
@@ -147,6 +150,38 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_generate(args) -> int:
+    """Greedy decoding on a seeded INT8 block-sparse decoder LM: static
+    scales calibrated on ``min(16, max_len)`` seeded tokens, the prompt's
+    KV caches filled by one causal forward per block (through K5 with
+    ``--flash``), then a decode loop."""
+    from resnet_accel_tpu_torch.models.lm import TransformerLMInt8
+
+    lm = TransformerLMInt8.from_random(
+        vocab=args.vocab, d_model=args.d_model, n_heads=args.heads,
+        d_ff=2 * args.d_model, n_layers=args.layers,
+        max_len=args.max_len, sparsity=args.sparsity, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    calib = rng.integers(0, args.vocab,
+                         min(16, args.max_len)).astype(np.int32)
+    scales = lm.calibrate(calib)
+    prompt = np.asarray(
+        [int(t) for t in args.prompt.split(",")], np.int32)
+    if prompt.size + args.n_new > args.max_len:
+        raise SystemExit("prompt + n_new exceeds --max-len")
+    module = lm.module(args.device)
+    t0 = time.perf_counter()
+    toks = module.generate(prompt, args.n_new, scales, flash=args.flash)
+    dt = time.perf_counter() - t0
+    print(f"prompt:    {prompt.tolist()}")
+    print(f"generated: {toks.tolist()}")
+    mean_sp = float(np.mean(
+        list(lm.blocks[0].sparsity_report().values())))
+    print(f"{args.n_new} tokens in {dt:.2f}s on {module.device}; "
+          f"sparsity {mean_sp:.0%} per projection")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m resnet_accel_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -161,7 +196,7 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--input", required=True,
                     help=".npy images: float32 NCHW, or for mnist raw "
                          "[N, 28, 28] pixels")
-    pi.add_argument("--device", required=True, choices=["cuda", "cpu"])
+    pi.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pi.add_argument("--limit", type=int, default=8)
     pi.add_argument("--num-classes", type=int, default=1000)
     pi.add_argument("--small-input", action="store_true",
@@ -177,8 +212,25 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--output", default=None)
     pb.add_argument("--no-cpu-baseline", action="store_true",
                     help="skip the numpy int32 GEMM column")
-    pb.add_argument("--device", required=True, choices=["cuda", "cpu"])
+    pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_bench)
+
+    pg = sub.add_parser("generate",
+                        help="greedy decode on the INT8 sparse LM")
+    pg.add_argument("--prompt", default="1,2,3",
+                    help="comma-separated token ids")
+    pg.add_argument("--n-new", type=int, default=8)
+    pg.add_argument("--layers", type=int, default=2)
+    pg.add_argument("--d-model", type=int, default=128)
+    pg.add_argument("--heads", type=int, default=4)
+    pg.add_argument("--vocab", type=int, default=64)
+    pg.add_argument("--max-len", type=int, default=64)
+    pg.add_argument("--sparsity", type=float, default=0.8)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--flash", action="store_true",
+                    help="flash-attention prefill (kernel K5)")
+    pg.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pg.set_defaults(fn=cmd_generate)
     return ap
 
 

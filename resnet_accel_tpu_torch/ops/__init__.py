@@ -1,11 +1,15 @@
-"""The compute path: the five kernel wrappers with their plain versions,
-and the int8 epilogues and pools they share."""
+"""The compute path: the six kernel wrappers with their plain versions,
+the int8 epilogues and pools they share, and the gather-compact BSR
+product of the LM's projections."""
 
 from resnet_accel_tpu_torch.ops.bsr_matmul import (
+    GatherBSR,
     PackedBSR,
     bsr_matmul_wt,
     bsr_matmul_wt_plain,
+    bsr_matmul_wt_xla,
     pack_bsr,
+    pack_gather_bsr,
 )
 from resnet_accel_tpu_torch.ops.conv import (
     conv2d_int8,
@@ -24,6 +28,10 @@ from resnet_accel_tpu_torch.ops.expand_fused import (
     expand_add_int8,
     expand_add_int8_plain,
 )
+from resnet_accel_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+)
 from resnet_accel_tpu_torch.ops.matmul_int8 import (
     matmul_int8,
     matmul_int8_plain,
@@ -38,21 +46,26 @@ from resnet_accel_tpu_torch.ops.stem_fused import (
 )
 
 __all__ = [
+    "GatherBSR",
     "PackedBSR",
     "add_residual",
     "avgpool_global_int8",
     "bsr_matmul_wt",
     "bsr_matmul_wt_plain",
+    "bsr_matmul_wt_xla",
     "conv2d_int8",
     "conv2d_int8_plain",
     "exact_inv_out_scale",
     "expand_add_int8",
     "expand_add_int8_plain",
+    "flash_attention",
+    "flash_attention_plain",
     "im2col_nchw",
     "matmul_int8",
     "matmul_int8_plain",
     "maxpool2d_int8",
     "pack_bsr",
+    "pack_gather_bsr",
     "pack_weight",
     "quantize_input",
     "requant_factors",

@@ -13,6 +13,10 @@ and both versions compute
 tensors and runs :func:`bsr_matmul_wt_plain` for CPU tensors.  A block row
 with no stored block still yields its output columns (``bias`` through the
 epilogue), as the TPU kernel's zero filler block does.
+
+``bsr_matmul_wt_xla`` over a :class:`GatherBSR` is the other route, the
+one the LM's projections take: the counterpart of the JAX package's XLA
+composition of the same name, for block shapes below K4's gate.
 """
 
 from __future__ import annotations
@@ -84,11 +88,10 @@ def bsr_matmul_wt_plain(
     factors: Optional[torch.Tensor] = None,
     relu: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version, the gather-einsum of the JAX
-    ``bsr_matmul_wt_xla``: gather the K slab of A each stored block needs,
-    contract it with the block, add each product into its block row.  In
-    float64, which is exact (see ``matmul_int8_plain``), for any block
-    size."""
+    """Plain PyTorch version of K4, its test reference: gather the K slab
+    of A each stored block needs, contract it with the block, add each
+    product into its block row.  In float64, which is exact (see
+    ``matmul_int8_plain``), for any block size."""
     _check_k(a, packed)
     M, K = a.shape
     bh, bw = packed.block_h, packed.block_w
@@ -166,3 +169,83 @@ def bsr_matmul_wt(
         M, K, N, nbr, bh, bw, int(relu), int(factors is not None),
         int(vec_a))
     return out
+
+
+# -------------------------------------------------------------------------
+# Gather-compact route (any block shape; the LM's 8 x 8 projections)
+# -------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GatherBSR:
+    """BSR repacked as rectangular arrays on a device: each block row's
+    stored blocks padded to ``lmax`` (the fullest row's count) with zero
+    blocks at gather index 0, so the ragged CSR walk becomes one batched
+    product over the padded blocks."""
+
+    blocks: torch.Tensor       # [nbr, lmax, bh, bw] int8
+    gather_idx: torch.Tensor   # [nbr, lmax] int64, K-block indices
+    weight: torch.Tensor       # [nbr, lmax * bw, bh] float64, the product's B
+    lmax: int
+    block_h: int
+    block_w: int
+    n_out: int
+    k_dim: int
+    n_padded: int
+    k_padded: int
+
+
+def pack_gather_bsr(bsr: BSRMatrix, device) -> GatherBSR:
+    """Counterpart of the JAX ``pack_gather_bsr``, on ``device``."""
+    if bsr.data.dtype != np.int8:
+        raise ValueError("gather BSR requires int8 blocks")
+    bh, bw = bsr.block_h, bsr.block_w
+    nbr = bsr.num_block_rows
+    rp = np.asarray(bsr.row_ptr)
+    counts = np.diff(rp)
+    lmax = max(int(counts.max()) if counts.size else 0, 1)
+    blocks = np.zeros((nbr, lmax, bh, bw), dtype=np.int8)
+    gidx = np.zeros((nbr, lmax), dtype=np.int64)
+    for br in range(nbr):
+        lo, hi = int(rp[br]), int(rp[br + 1])
+        blocks[br, :hi - lo] = bsr.data[lo:hi]
+        gidx[br, :hi - lo] = bsr.col_idx[lo:hi]
+    weight = blocks.astype(np.float64).transpose(0, 1, 3, 2).reshape(
+        nbr, lmax * bw, bh)
+    return GatherBSR(
+        blocks=torch.from_numpy(blocks).to(device),
+        gather_idx=torch.from_numpy(gidx).to(device),
+        weight=torch.from_numpy(np.ascontiguousarray(weight)).to(device),
+        lmax=lmax, block_h=bh, block_w=bw,
+        n_out=bsr.shape[0], k_dim=bsr.shape[1],
+        n_padded=bsr.padded_shape[0], k_padded=bsr.padded_shape[1])
+
+
+def bsr_matmul_wt_xla(a: torch.Tensor, g: GatherBSR) -> torch.Tensor:
+    """C[M, n_out] = A[M, K] @ W^T for int8 ``a``, int32, bit-exact.
+
+    The counterpart of the JAX ``bsr_matmul_wt_xla``, a composition that
+    the JAX package, too, leaves to the compiler outside any kernel: gather
+    the K slab of A that each padded block needs, one batched product over
+    the block rows, slice to ``n_out``.  Work scales with the padded stored
+    blocks, so the zero-block skip holds here as well.  This is the route
+    for block shapes below K4's ``block_h % 16``, ``block_w % 32`` gate
+    (the LM's 8 x 8 blocks), and it is not K4's plain version: that one,
+    :func:`bsr_matmul_wt_plain`, stays K4's reference.
+
+    The product runs in float64, never TF32: every term is an integer of
+    at most 2^14 and a sum has at most K terms, far below 2^53, so every
+    partial sum is exact in any order.  (Float32 would be exact only while
+    K * 2^14 <= 2^24; the LM's w2 has K = 1024, right at that edge.)"""
+    if a.ndim != 2:
+        raise ValueError(f"A must be 2-D, got shape {tuple(a.shape)}")
+    M, K = a.shape
+    if K not in (g.k_dim, g.k_padded):
+        raise ValueError(f"A has K={K}, BSR expects {g.k_dim} "
+                         f"(padded {g.k_padded})")
+    nbr = g.gather_idx.shape[0]
+    a = F.pad(a, (0, g.k_padded - K))
+    slabs = a.reshape(M, g.k_padded // g.block_w, g.block_w).index_select(
+        1, g.gather_idx.reshape(-1))                  # [M, nbr * lmax, bw]
+    slabs = slabs.to(torch.float64).reshape(M, nbr, g.lmax * g.block_w)
+    out = torch.bmm(slabs.transpose(0, 1), g.weight)   # [nbr, M, bh]
+    return out.transpose(0, 1).reshape(M, -1)[:, :g.n_out].to(torch.int32)

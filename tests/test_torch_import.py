@@ -27,6 +27,7 @@ def test_import_leaves_jax_out():
             "import resnet_accel_tpu_torch, resnet_accel_tpu_torch.cli\n"
             "import resnet_accel_tpu_torch.runtime.engine\n"
             "import resnet_accel_tpu_torch.ops, resnet_accel_tpu_torch._kernels\n"
+            "import resnet_accel_tpu_torch.models.lm\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'resnet_accel_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'resnet_accel_tpu.')))\n"

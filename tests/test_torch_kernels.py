@@ -249,3 +249,29 @@ def test_expand_add_refuses_nchw_residual(cuda):
     r = torch.zeros(1, 16, 3, 3, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="channels_last"):
         ops.expand_add_int8(x, w, v, v.float(), r, 1.0, 1.0, 1.0)
+
+
+# K5 against its plain version (TF32 off) at rtol = atol = 2e-5, the
+# tolerance the JAX kernel is held to: float32 sums in another order.  The
+# LM's prefill runs BH = 8 (one request) and 64 (eight), T = 640, dh = 64,
+# causal; T = 1, 63 and 1000 take the ragged edges.
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("T", [1, 63, 640, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("BH", [8, 64])
+def test_flash_attention(cuda, dh, T, causal, BH):
+    gen = torch.Generator(device=cuda).manual_seed(dh + T + BH)
+    q, k, v = (torch.randn((BH, T, dh), generator=gen, device=cuda)
+               for _ in range(3))
+    before = _kernels.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_refuses_wide_heads(cuda):
+    q = torch.zeros((2, 8, 160), device=cuda)
+    with pytest.raises(ValueError, match="dh <= 128"):
+        ops.flash_attention(q, q, q)

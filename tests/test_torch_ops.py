@@ -266,6 +266,9 @@ class TestDispatch:
                                           device="meta"), packed)
         with pytest.raises(ValueError, match="unsupported device"):
             ops.expand_add_int8(x, w[:, :, 0, 0], v, v, x, 1.0, 1.0, 1.0)
+        q = torch.zeros(2, 8, 16, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.flash_attention(q, q, q, causal=True)
 
     def test_plain_path_counts_no_launch(self):
         _kernels.reset_launch_counts()
@@ -279,9 +282,11 @@ class TestDispatch:
         ops.expand_add_int8(z, torch.zeros((8, 8), dtype=torch.int8),
                             torch.zeros(8, dtype=torch.int32),
                             torch.ones(8), z, 1.0, 1.0, 1.0)
+        q = torch.ones(2, 8, 16)
+        ops.flash_attention(q, q, q, causal=True)
         assert _kernels.launch_counts() == {
             "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0,
-            "bsr_matmul": 0, "expand_add": 0}
+            "bsr_matmul": 0, "expand_add": 0, "flash_attention": 0}
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
