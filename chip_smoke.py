@@ -1,13 +1,14 @@
 """Smoke run of the PyTorch port on one CUDA card: dense INT8 ResNet-18
-and ResNet-50 serving, block-sparse ResNet-18, the INT8 MNIST CNN and
-greedy generation on the INT8 block-sparse decoder LM.
+and ResNet-50 serving, block-sparse ResNet-18, the INT8 MNIST CNN, greedy
+generation on the INT8 block-sparse decoder LM, the zero-skip conv sweep
+and the int8-input stream.
 
     python3 chip_smoke.py
 
 Needs one card, nvcc and the repo checkout; exits non-zero (and prints no
 result line) without them.  Phases, each fatal on failure:
 
-1. Build the six kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
+1. Build the eight kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
 2. Hold K1-K3 against their plain PyTorch versions on the card, bit for
    bit, at the dense path's shapes and values: a seed-0 ResNet-18
    (ImageNet geometry, 1000 classes), quantized and calibrated on the CPU,
@@ -70,11 +71,29 @@ result line) without them.  Phases, each fatal on failure:
    and of 32 decode steps.
 14. ``generate --flash`` as a subprocess with the same model and prompt:
    its tokens must equal ``generate(flash=True)``'s.
+15. The conv sweep's four cases (ResNet-18's strided convs at ImageNet
+   widths, batch 64, tap blocks zeroed at 0.7, seed 1): K8 against its
+   plain version and against the dense K2 on the same weights, bit for
+   bit, with K8's, the plain and K2's times, K8's bound and
+   ``speedup_vs_dense``.  Then ``bench --conv --device cuda`` in this
+   process, counts reset just before (K8 and K2 must launch), and as a
+   subprocess; each must print four JSON lines.
+16. K10 at ResNet-18's stem, batch 128, 224 x 224, on ``quantize_input``
+   of the seed-0 images: pooled and unpooled against the plain version,
+   and pooled against K1 on the fp32 images, bit for bit.
+17. The int8 stream: three batches of 128 quantized on the host through
+   ``InferenceEngine(device="cuda").stream``, counts reset just before:
+   K10, K2 and K3 must launch and K1 must not.  The logits must be finite,
+   [128, 1000] a batch, bit-identical to the plain path on the card, to
+   the fp32-input forward of the same images and for two images to the
+   plain path on the CPU.  Prints the stream's img/s and the int8- and
+   fp32-input forwards' times.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the five served paths; ms the kernel's time summed over the shapes of the
+the seven served paths; ms the kernel's time summed over the shapes of the
 paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
-K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5;
+K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5, the
+sweep's four cases for K8, the pooled stem for K10;
 bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
 and operations / the peak of their type; library_ms the PyTorch call timed
 beside the kernel, summed the same way, or null); the last is
@@ -82,6 +101,8 @@ beside the kernel, summed the same way, or null); the last is
 the card's name and power limit.
 """
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -108,6 +129,9 @@ MNIST_SHAPES = {"conv1": (32, 1, 3, 3), "conv2": (64, 32, 3, 3),
 LM_CFG = dict(vocab=256, d_model=512, n_heads=8, d_ff=1024, n_layers=4,
               max_len=1024, sparsity=0.8, block=8)
 PROMPT, N_NEW, LM_BATCH = 640, 256, 8
+# The conv sweep (bench --conv, tools/tune_tpu.py's): batch and tap-block
+# sparsity.
+SWEEP_BATCH, SWEEP_SPARSITY = 64, 0.7
 
 
 def fail(msg: str):
@@ -125,12 +149,35 @@ def bsr_work(a, pk, out):
     return nbytes, 2 * a.shape[0] * pk.blocks.numel(), "int8"
 
 
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
+def sconv_work(x, pk, stride, out):
+    """Bytes and int8 operations of one K8 call, counted from its stored
+    blocks.  In: for each channel block that some stored block reads, the
+    input pixels its stored taps reach inside the image (each once); the
+    stored blocks and their indices; the factors.  Out: the output.  The
+    products: each stored block at the output pixels whose tap lies inside
+    the image (none with no stored block)."""
+    N, C, H, W = x.shape
+    _, O, Ho, Wo = out.shape
+    p = pk.padding
+
+    def reach(k, n_out, n_in):      # input rows or columns of tap k
+        r = np.arange(n_out) * stride + k - p
+        return r[(r >= 0) & (r < n_in)]
+    taps = {}
+    for kh, kw, cb in zip(pk.kh.tolist(), pk.kw.tolist(), pk.cb.tolist()):
+        taps.setdefault(cb, set()).add((kh, kw))
+    pixels = 0
+    for tset in taps.values():
+        seen = np.zeros((H, W), bool)
+        for kh, kw in tset:
+            seen[np.ix_(reach(kh, Ho, H), reach(kw, Wo, W))] = True
+        pixels += int(seen.sum())
+    nbytes = (N * pk.block_c * pixels + pk.blocks.numel()
+              + 4 * (pk.o_ptr.numel() + 3 * pk.nnz_source) + 4 * O
+              + out.numel() * out.element_size())
+    valid = sum(reach(kh, Ho, H).size * reach(kw, Wo, W).size
+                for kh, kw in zip(pk.kh.tolist(), pk.kw.tolist()))
+    return nbytes, 2 * N * pk.block_c * pk.block_o * valid, "int8"
 
 
 #: Clock cycles the card spins (about 2.5 ms) before each timed run, so
@@ -244,7 +291,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(repo, "resnet_accel_tpu_torch")):
         fail(f"no resnet_accel_tpu_torch package beside {__file__}")
     sys.path.insert(0, repo)
-    from resnet_accel_tpu_torch import _kernels
+    from resnet_accel_tpu_torch import _kernels, cli
     from resnet_accel_tpu_torch.models.lm import TransformerLMInt8
     from resnet_accel_tpu_torch.models.mnist_cnn import (
         MNISTCNNInt8, MNISTCNNInt8Module)
@@ -258,15 +305,20 @@ def main() -> None:
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
         expand_add_int8_plain, flash_attention, flash_attention_plain,
         im2col_nchw, matmul_int8, matmul_int8_plain,
-        maxpool2d_int8, quantize_input, stem_conv_pool, stem_conv_pool_plain)
+        maxpool2d_int8, pack_weight, quantize_input, sparse_conv2d_int8,
+        sparse_conv2d_int8_plain, stem_conv_pool, stem_conv_pool_int8,
+        stem_conv_pool_int8_plain, stem_conv_pool_plain)
     from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
+                                                       QuantizingLoader,
                                                        preprocess_mnist)
+    from resnet_accel_tpu_torch.sparse import (device_pack, pack_conv_bsr,
+                                               tap_sparse_weight)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     cl = torch.channels_last
-    label = card_label()
+    label = cli.device_label(dev)
     print(label)  # name, power limit: as nvidia-smi prints them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -895,8 +947,135 @@ def main() -> None:
         fail(f"CLI generate --flash exited {proc.returncode} or its tokens "
              f"differ from generate(flash=True)")
 
+    # ---- 15. the conv sweep: K8 against its plain version and K2 ------
+    sweep_rng = np.random.default_rng(1)      # bench --conv's data
+    speedups = {}
+    with torch.inference_mode():
+        for name, C, O, H, k, s, p in cli.CONV_CASES:
+            xs = torch.from_numpy(sweep_rng.integers(
+                -128, 128, (SWEEP_BATCH, C, H, H)).astype(np.int8)).to(
+                dev).contiguous(memory_format=cl)
+            w = tap_sparse_weight(sweep_rng, O, C, k, SWEEP_SPARSITY)
+            fct = torch.full((O,), 0.001, dtype=torch.float32, device=dev)
+            zero = torch.zeros(O, dtype=torch.int32, device=dev)
+            pk = device_pack(pack_conv_bsr(w, padding=p), dev)
+            wd = pack_weight(w.reshape(O, -1), C, k, dev)
+            kw = dict(factors=fct, relu=True, stride=s)
+
+            def work(out, xs=xs, pk=pk, s=s):
+                return sconv_work(xs, pk, s, out)
+            ms0 = stats["sparse_conv"]["ms"]
+            got = check("sparse_conv", name.split()[0],
+                        lambda: sparse_conv2d_int8(xs, pk, **kw),
+                        lambda: sparse_conv2d_int8_plain(xs, pk, **kw),
+                        f"x{list(xs.shape)} k{k} s{s} O{O} "
+                        f"{pk.nnz_source}/{pk.total_source} blocks", work)
+            k8_ms = stats["sparse_conv"]["ms"] - ms0
+
+            def dense():
+                return conv2d_int8(xs, wd, zero, fct, stride=s, padding=p,
+                                   relu=True)
+            if not torch.equal(dense(), got):
+                fail(f"K8 and the dense K2 disagree at {name}")
+            d_ms = time_ms(dense, 10)
+            speedups[name] = d_ms / k8_ms
+            print(f"{'':12s} {name}: dense K2 {d_ms:.4f} ms, equal to K8; "
+                  f"speedup_vs_dense {speedups[name]:.3f}  ({label})")
+    summary("conv sweep (4 cases)", {k: dict.fromkeys(v, 0.0)
+                                     for k, v in stats.items()},
+            ("sparse_conv",))
+
+    def sweep_lines(text, what):
+        rows = [json.loads(ln) for ln in text.splitlines()
+                if ln.startswith("{")]
+        if len(rows) != 4 or any(r.get("kind") != "conv" for r in rows):
+            fail(f"{what} printed {len(rows)} conv lines, not 4")
+        return rows
+    buf = io.StringIO()
+
+    def sweep():
+        with contextlib.redirect_stdout(buf):
+            return cli.main(["bench", "--conv", "--device", "cuda"])
+    rc, claunches = served_launches(
+        _kernels, sweep, ["sparse_conv", "conv_int8"],
+        "the conv sweep (bench --conv), 4 cases")
+    print(buf.getvalue(), end="")
+    sweep_lines(buf.getvalue(), "bench --conv")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "resnet_accel_tpu_torch", "bench", "--conv",
+         "--device", "cuda"], cwd=repo, capture_output=True, text=True,
+        timeout=600)
+    print(proc.stdout, end="")
+    print(f"bench --conv (subprocess): {time.perf_counter() - t0:.1f} s  "
+          f"({label})")
+    if proc.returncode != 0:
+        print(proc.stderr, file=sys.stderr)
+        fail(f"CLI bench --conv exited {proc.returncode}")
+    sweep_lines(proc.stdout, "bench --conv (subprocess)")
+
+    # ---- 16. K10 at ResNet-18's stem ----------------------------------
+    x0 = torch.from_numpy(batches[0]).to(dev)
+    q0 = quantize_input(x0, mod.s_input)
+    st = mod.stem
+    with torch.inference_mode():
+        for pool in (True, False):
+            def work(out):
+                N, _, H, W = q0.shape
+                Hc, Wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+                return (q0.numel() + st.weight.numel() + 8 * 64
+                        + out.numel(),
+                        2 * N * 64 * Hc * Wc * st.weight[0].numel(), "int8")
+            args = (q0, st.weight, st.bias, st.factors, pool)
+            k10 = check("stem_int8", "pooled" if pool else "conv",
+                        lambda: stem_conv_pool_int8(*args),
+                        lambda: stem_conv_pool_int8_plain(*args),
+                        f"q{list(q0.shape)} int8", work, timed=pool)
+            if pool and not torch.equal(k10, stem_conv_pool(
+                    x0, st.weight, st.bias, st.factors, mod.s_input)):
+                fail("K10 of the quantized images differs from K1 of the "
+                     "fp32 ones")
+    print(f"K10 pooled equals K1 on the fp32 images it came from  ({label})")
+
+    # ---- 17. the int8 stream ----------------------------------------------
+    qengine = InferenceEngine(model, device="cuda")
+    loader = QuantizingLoader(np.concatenate(batches), model.s_input, BATCH)
+    qres, qlaunches = served_launches(
+        _kernels, lambda: qengine.stream(loader, len(batches)),
+        ["stem_int8", "conv_int8", "matmul_int8"],
+        f"int8 stream, {len(batches)} batches of {BATCH}")
+    if qlaunches["stem_fused"] != 0:
+        fail("the int8 stream launched K1")
+    with torch.inference_mode():
+        for b, xb in enumerate(batches):
+            got = qres.logits[b * BATCH:(b + 1) * BATCH]
+            if got.shape != (BATCH, CLASSES) or not np.isfinite(got).all():
+                fail(f"int8 stream batch {b}: logits {got.shape} not finite")
+            xt = torch.from_numpy(xb).to(dev)
+            qb = quantize_input(xt, model.s_input)
+            for what, ref in (("the plain path", mod.forward_plain(qb)),
+                              ("the fp32-input forward", mod(xt))):
+                if not np.array_equal(got, ref.cpu().numpy()):
+                    fail(f"int8 stream batch {b}: logits differ from {what}")
+        cpu = ResNet18Int8Module(model, "cpu")(
+            quantize_input(torch.from_numpy(batches[0][:2]), model.s_input))
+    if not np.array_equal(qres.logits[:2], cpu.numpy()):
+        fail("int8 stream logits differ from the plain path on the CPU")
+    print(f"int8 stream logits: {len(batches)} x [{BATCH}, {CLASSES}] "
+          f"finite, bit-identical to the plain path on the card, to the "
+          f"fp32-input forward and (2 images) to the plain path on the CPU")
+    with torch.inference_mode():
+        t_int8 = time_ms(lambda: mod(q0), 10)
+        t_fp32 = time_ms(lambda: mod(x0), 10)
+    print(f"int8 stream: {qres.images_per_s:.1f} img/s over batches 2-3 "
+          f"(CUDA events, host quantize and pinned upload included); "
+          f"forward batch {BATCH} on the card: int8 input {t_int8:.3f} ms, "
+          f"fp32 input {t_fp32:.3f} ms (median of 10)  ({label})")
+    del qengine
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
-             + mlaunches[name] + llaunches[name] for name in _kernels.KERNELS}
+             + mlaunches[name] + llaunches[name] + claunches[name]
+             + qlaunches[name] for name in _kernels.KERNELS}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, k in _kernels.KERNELS.items():

@@ -79,6 +79,14 @@ KERNELS: Dict[str, Kernel] = {
                "resnet_accel_tpu_torch/csrc/flash_attention.cu",
                "resnet_accel_tpu/ops/flash_attention.py:43",
                [_P] * 4 + [_I] * 4 + [_F, _P]),
+        Kernel("sparse_conv", "sparse_conv_launch",
+               "resnet_accel_tpu_torch/csrc/sparse_conv.cu",
+               "resnet_accel_tpu/ops/sparse_conv.py:150",
+               [_P] * 9 + [_I] * 13 + [_P]),
+        Kernel("stem_int8", "stem_int8_launch",
+               "resnet_accel_tpu_torch/csrc/stem_int8.cu",
+               "resnet_accel_tpu/ops/fused_stem.py:82",
+               [_P] * 5 + [_I] * 6 + [_P]),
     )
 }
 

@@ -2,7 +2,8 @@
 
     infer     run INT8 inference (a ResNet of the family -- 18, 34, 50,
               101 or 152 -- or the MNIST CNN) on an .npy array of images
-    bench     dense-vs-sparse GEMM sweep through the zero-skip kernel
+    bench     dense-vs-sparse GEMM sweep through the zero-skip kernel, or
+              with --conv the zero-skip conv against the dense conv
     generate  greedy decoding on the INT8 block-sparse decoder LM
 
 Every subcommand runs on the card unless ``--device cpu`` asks for the CPU.
@@ -13,6 +14,7 @@ Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
        python -m resnet_accel_tpu_torch infer --model mnist \\
            --weights int8_dir --input digits.npy
        python -m resnet_accel_tpu_torch bench
+       python -m resnet_accel_tpu_torch bench --conv
        python -m resnet_accel_tpu_torch generate --flash --prompt 1,2,3
 """
 
@@ -87,12 +89,86 @@ def _median_time_s(fn, iters: int, device) -> float:
     return statistics.median(times)
 
 
+#: The conv sweep's cases, (name, C, O, H, kernel, stride, padding): the
+#: strided convs of ResNet-18 at ImageNet widths (``tools/tune_tpu.py``).
+CONV_CASES = [
+    ("l3.c1 3x3 s2", 128, 256, 28, 3, 2, 1),
+    ("l3.ds 1x1 s2", 128, 256, 28, 1, 2, 0),
+    ("l4.c1 3x3 s2", 256, 512, 14, 3, 2, 1),
+    ("l4.ds 1x1 s2", 256, 512, 14, 1, 2, 0),
+]
+
+
+def device_label(dev) -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them (it
+    ships with the driver; a failure to run it raises), or ``cpu``."""
+    import subprocess
+    if dev.type != "cuda":
+        return "cpu"
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return lines[dev.index or 0].strip()
+
+
+def cmd_bench_conv(args) -> int:
+    """The zero-skip conv (K8) against the dense conv (K2) on the same
+    weights at ResNet-18's strided convs: seeded int8 inputs, tap-block
+    sparse weights (``--sparsity`` of the 128-wide blocks zeroed), factors
+    0.001 with ReLU; median time of ``--iters`` runs each.  One JSON line a
+    case."""
+    import torch
+    from resnet_accel_tpu_torch.ops import (conv2d_int8, pack_weight,
+                                            sparse_conv2d_int8)
+    from resnet_accel_tpu_torch.runtime.backend import resolve_device
+    from resnet_accel_tpu_torch.sparse import (device_pack, pack_conv_bsr,
+                                               tap_sparse_weight)
+
+    dev = resolve_device(args.device)
+    label = device_label(dev)
+    rng = np.random.default_rng(1)
+    N = args.batch if args.batch > 0 else 64
+    rows = []
+    with torch.inference_mode():
+        for name, C, O, H, k, s, p in CONV_CASES:
+            x = torch.from_numpy(
+                rng.integers(-128, 128, (N, C, H, H)).astype(np.int8)).to(
+                dev).contiguous(memory_format=torch.channels_last)
+            w = tap_sparse_weight(rng, O, C, k, args.sparsity)
+            fct = torch.full((O,), 0.001, dtype=torch.float32, device=dev)
+            zero = torch.zeros(O, dtype=torch.int32, device=dev)
+            wd = pack_weight(w.reshape(O, -1), C, k, dev)
+            cbsr = pack_conv_bsr(w, padding=p)
+            packed = device_pack(cbsr, dev)
+            td = _median_time_s(lambda: conv2d_int8(
+                x, wd, zero, fct, stride=s, padding=p, relu=True),
+                args.iters, dev)
+            ts = _median_time_s(lambda: sparse_conv2d_int8(
+                x, packed, factors=fct, relu=True, stride=s),
+                args.iters, dev)
+            row = {"kind": "conv", "case": name, "batch": N,
+                   "sparsity": round(cbsr.sparsity, 3),
+                   "nnz_blocks": cbsr.nnz_source,
+                   "total_blocks": cbsr.total_source,
+                   "dense_ms": td * 1e3, "sparse_ms": ts * 1e3,
+                   "speedup_vs_dense": td / ts, "device": label}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({"device": label, "rows": rows}, f, indent=2)
+    return 0
+
+
 def cmd_bench(args) -> int:
     """Sizes x sparsities sweep: a square int8 W with 128 x 128 blocks
     zeroed at random, through ``bsr_matmul_wt``; latency, GOPS over the
     stored blocks and the speedup against the first sparsity (dense).
     ``max_row_blocks`` is the fullest block row's count: the kernel's
     blocks each walk one block row, so it bounds the time."""
+    if args.conv:
+        return cmd_bench_conv(args)
     import torch
     from resnet_accel_tpu_torch.ops import bsr_matmul_wt, pack_bsr
     from resnet_accel_tpu_torch.runtime.backend import resolve_device
@@ -203,15 +279,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="CIFAR geometry: 3x3 stem, no max pool")
     pi.set_defaults(fn=cmd_infer)
 
-    pb = sub.add_parser("bench", help="dense-vs-sparse GEMM sweep")
-    pb.add_argument("--sizes", default="2048,4096")
-    pb.add_argument("--sparsities", default="0.0,0.5,0.7,0.9")
+    pb = sub.add_parser("bench", help="dense-vs-sparse GEMM or conv sweep")
+    pb.add_argument("--conv", action="store_true",
+                    help="the zero-skip conv against the dense conv at "
+                         "ResNet-18's strided convs")
+    pb.add_argument("--sparsity", type=float, default=0.7,
+                    help="--conv only: share of the tap blocks zeroed")
+    pb.add_argument("--sizes", default="2048,4096",
+                    help="GEMM sweep only (--conv ignores it)")
+    pb.add_argument("--sparsities", default="0.0,0.5,0.7,0.9",
+                    help="GEMM sweep only (--conv ignores it)")
     pb.add_argument("--batch", type=int, default=0,
-                    help="rows M (0 = 512)")
+                    help="rows M (0 = 512); --conv: images (0 = 64)")
     pb.add_argument("--iters", type=int, default=5)
     pb.add_argument("--output", default=None)
     pb.add_argument("--no-cpu-baseline", action="store_true",
-                    help="skip the numpy int32 GEMM column")
+                    help="skip the numpy int32 GEMM column (--conv has "
+                         "none)")
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_bench)
 

@@ -1,0 +1,218 @@
+// K8: zero-skip int8 convolution over tap-aligned BSR blocks, without
+// im2col, any stride, with a fused bias / ReLU / requant epilogue.
+//
+// Replaces resnet_accel_tpu/ops/sparse_conv.py::_sconv_kernel (reached
+// through sparse_conv2d_int8).  The TPU kernel kept phase planes of the
+// input resident in VMEM and walked the blocks in scalar-prefetched
+// chunks; those are Mosaic workarounds and are not carried over.
+//
+// Weights: a block is block_c input channels at one tap (kh, kw) by
+// block_o output channels.  The stored blocks are grouped by output block
+// ob as a CSR (o_ptr), each stored [block_o, block_c] int8, so a row of
+// one output channel's weights is K-contiguous: the mma.sync B fragment.
+// Activations are channels-last [N, H, W, C] int8 and the output is
+// channels-last [N, Ho, Wo, c_out]: int8 with factors, int32 without.
+//
+// Per output (pixel p, channel o):
+//   acc = sum over the stored blocks of ob(o), over their block_c channels
+//         of x[n, ho*s + kh - pad, wo*s + kw - pad, cb*block_c + c] * w
+//   acc = acc + bias[o]; acc = relu(acc)         if given
+//   q   = clip(rint(float(acc) * factors[o]))    if factors is given
+// An output block with no stored block still writes its epilogue.
+//
+// What bounds it on the H100: at the conv sweep's ResNet-18 shapes (batch
+// 64, 30 % of the blocks stored) a call is about 2 G int8 operations on
+// a few MB, so the bound is bytes, a few microseconds; the kernel sits at
+// launch and latency scale.  The design is K2's implicit GEMM restricted
+// to the stored blocks: a CTA owns 128 output pixels by a 64-wide slice
+// of one output block, walks that block's CSR list, and for each 32-byte
+// K step of a block gathers 16 contiguous bytes a thread straight from the
+// input at the tap's strided position (zero outside the image) and the
+// block's B rows, into two shared stages, while the tensor cores
+// (mma.sync m16n8k32, the code of mma_s8.cuh) work on the other.  The
+// epilogue runs once, at the end.  cp.async slabs, wgmma and TMA are later
+// work.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "epilogue.cuh"
+#include "mma_s8.cuh"
+
+namespace {
+
+constexpr int kBM = 128;    // output pixels per block
+constexpr int kBN = 64;     // output channels per block (of one ob)
+constexpr int kKB = 32;     // K bytes per step
+constexpr int kLd = 12;     // shared row stride in words: conflict-free
+                            // fragment reads, 16-byte aligned rows
+constexpr int kThreads = 256;
+
+struct SconvGeom {
+  int N, H, W, C, Ho, Wo, stride, pad, c_out, block_c, block_o, halves;
+};
+
+template <bool kRequant>
+__global__ void __launch_bounds__(kThreads, 2)
+sparse_conv_kernel(const int8_t* __restrict__ x,
+                   const int8_t* __restrict__ blocks,
+                   const int* __restrict__ o_ptr, const int* __restrict__ kh_of,
+                   const int* __restrict__ kw_of, const int* __restrict__ cb_of,
+                   const int32_t* __restrict__ bias,
+                   const float* __restrict__ factors, void* __restrict__ out,
+                   SconvGeom g, int relu) {
+  __shared__ __align__(16) int As[2][kBM * kLd];   // [pixel][k word]
+  __shared__ __align__(16) int Bs[2][kBN * kLd];   // [channel][k word]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t M = static_cast<int64_t>(g.N) * g.Ho * g.Wo;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kBM;
+  const int ob = blockIdx.y / g.halves;
+  const int n_lo = (blockIdx.y % g.halves) * kBN;  // within the block
+  const int n_cnt = min(kBN, g.block_o - n_lo);
+
+  // Each thread fetches bytes [16*half, 16*half + 16) of every step for
+  // one pixel (A) and, in the first half of the block, one channel (B).
+  const int half = tid % 2;
+  const int am = tid / 2;                 // 0..127
+  const int bn = tid / 2;                 // < n_cnt fetches a B row
+  int pn = -1, ph = 0, pw = 0;            // the A pixel's image, origin
+  {
+    const int64_t gm = m0 + am;
+    if (gm < M) {
+      const int hw = g.Ho * g.Wo;
+      const int r = static_cast<int>(gm % hw);
+      pn = static_cast<int>(gm / hw);
+      ph = (r / g.Wo) * g.stride - g.pad;
+      pw = (r % g.Wo) * g.stride - g.pad;
+    }
+  }
+  const int64_t img = static_cast<int64_t>(pn) * g.H;
+  const bool b_live = bn < n_cnt;
+
+  const int j0 = o_ptr[ob];
+  const int kps = g.block_c / kKB;        // K steps per block
+  const int steps = (o_ptr[ob + 1] - j0) * kps;
+
+  // fetch(t) -> ra, rb: step t's A and B bytes for this thread
+  int4 ra, rb;
+  auto fetch = [&](int t) {
+    const int j = j0 + t / kps;
+    const int k0 = (t % kps) * kKB + 16 * half;
+    ra = make_int4(0, 0, 0, 0);
+    rb = make_int4(0, 0, 0, 0);
+    const int ih = ph + __ldg(kh_of + j), iw = pw + __ldg(kw_of + j);
+    if (pn >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
+      ra = __ldg(reinterpret_cast<const int4*>(
+          x + ((img + ih) * g.W + iw) * g.C +
+          __ldg(cb_of + j) * g.block_c + k0));
+    if (b_live)
+      rb = __ldg(reinterpret_cast<const int4*>(
+          blocks + (static_cast<int64_t>(j) * g.block_o + n_lo + bn) *
+                       g.block_c + k0));
+  };
+  auto stash = [&](int s) {
+    *reinterpret_cast<int4*>(&As[s][am * kLd + 4 * half]) = ra;
+    if (bn < kBN) *reinterpret_cast<int4*>(&Bs[s][bn * kLd + 4 * half]) = rb;
+  };
+
+  // Warp tile: rows wm..wm+31 (two m16), cols wn..wn+31 (four n8).
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int gq = lane / 4, tq = lane % 4;  // mma groupID, thread in group
+  int acc[2][4][4] = {};
+
+  if (steps > 0) {
+    fetch(0);
+    stash(0);
+    __syncthreads();
+  }
+  int s = 0;
+  for (int t = 0; t < steps; ++t) {
+    const bool more = t + 1 < steps;
+    if (more) fetch(t + 1);  // in flight while the tensor cores run
+    const int* as = As[s];
+    const int* bs = Bs[s];
+    int a[2][4], b[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wm + 16 * i + gq;
+      a[i][0] = as[r * kLd + tq];
+      a[i][1] = as[(r + 8) * kLd + tq];
+      a[i][2] = as[r * kLd + tq + 4];
+      a[i][3] = as[(r + 8) * kLd + tq + 4];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn + 8 * j + gq;
+      b[j][0] = bs[c * kLd + tq];
+      b[j][1] = bs[c * kLd + tq + 4];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
+    if (more) {
+      stash(s ^ 1);  // the other stage: nobody reads it this step
+      __syncthreads();
+      s ^= 1;
+    }
+  }
+
+  // Epilogue: acc[i][j] holds rows (r, r + 8) x cols (c, c + 1).
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn + 8 * j + 2 * tq + e;       // within the slice
+      const int c = ob * g.block_o + n_lo + col;     // output channel
+      if (col >= n_cnt || c >= g.c_out) continue;
+      const int bc = bias != nullptr ? bias[c] : 0;
+      const float f = kRequant ? factors[c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t gm = m0 + wm + 16 * i + gq + 8 * h;
+          if (gm >= M) continue;
+          int v = acc[i][j][2 * h + e] + bc;
+          if (relu) v = max(v, 0);
+          const int64_t off = gm * g.c_out + c;
+          if (kRequant)
+            static_cast<int8_t*>(out)[off] =
+                static_cast<int8_t>(requant_i8(v, f));
+          else
+            static_cast<int32_t*>(out)[off] = v;
+        }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int sparse_conv_launch(
+    const void* x, const void* blocks, const void* o_ptr, const void* kh,
+    const void* kw, const void* cb, const void* bias, const void* factors,
+    void* out, int64_t N, int64_t H, int64_t W, int64_t C, int64_t Ho,
+    int64_t Wo, int64_t stride, int64_t pad, int64_t c_out, int64_t block_c,
+    int64_t block_o, int64_t n_ob, int64_t relu, void* stream) {
+  const int halves = static_cast<int>((block_o + kBN - 1) / kBN);
+  const SconvGeom g{static_cast<int>(N),       static_cast<int>(H),
+                    static_cast<int>(W),       static_cast<int>(C),
+                    static_cast<int>(Ho),      static_cast<int>(Wo),
+                    static_cast<int>(stride),  static_cast<int>(pad),
+                    static_cast<int>(c_out),   static_cast<int>(block_c),
+                    static_cast<int>(block_o), halves};
+  const int64_t M = N * Ho * Wo;
+  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
+                  static_cast<unsigned>(n_ob * halves));
+  auto* kernel = factors != nullptr ? sparse_conv_kernel<true>
+                                    : sparse_conv_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(blocks),
+      static_cast<const int*>(o_ptr), static_cast<const int*>(kh),
+      static_cast<const int*>(kw), static_cast<const int*>(cb),
+      static_cast<const int32_t*>(bias), static_cast<const float*>(factors),
+      out, g, static_cast<int>(relu));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -16,10 +16,11 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
 - ``prune_params_blockwise`` zeroes whole weight blocks by magnitude and
   ``attach_bsr`` gives each layer with enough zero blocks its
   ``BSRMatrix`` (``QConv.bsr``): block-sparse serving;
-- ``ResNet18Int8Module`` is the forward (fp32 NCHW images -> fp32 logits),
-  one route per layer:
+- ``ResNet18Int8Module`` is the forward (fp32 or int8 NCHW images -> fp32
+  logits), one route per layer:
 
-      stem_conv_pool (K1) -> per block:
+      stem_conv_pool (K1), or stem_conv_pool_int8 (K10) for int8 images
+      -> per block:
         basic:      conv2d_int8 (K2) for c1, for the downsample and for
                     c2 with the residual join fused in
         bottleneck: conv2d_int8 (K2) for c1, c2 and the downsample, then
@@ -30,7 +31,9 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
   the zero-block skip, with bias, ReLU and requant fused) instead of K2 or
   K7; a sparse c2 of a basic block or c3 of a bottleneck then joins its
   residual with ``add_residual``.  The stem always runs dense (the pruner
-  never touches it).
+  never touches it).  Int8 images are taken as already quantized with
+  ``s_input`` (the loader's work), as the JAX ``make_forward`` takes them;
+  the CIFAR stem then only skips its quantize.
 
   On CUDA tensors every step above marked K runs its hand-written kernel;
   on CPU tensors the plain PyTorch versions run.  ``forward_plain`` runs
@@ -68,6 +71,8 @@ from resnet_accel_tpu_torch.ops import (
     quantize_input,
     requant_factors,
     stem_conv_pool,
+    stem_conv_pool_int8,
+    stem_conv_pool_int8_plain,
     stem_conv_pool_plain,
 )
 from resnet_accel_tpu_torch.quant import (bias_to_int32, pow2_scale,
@@ -682,8 +687,8 @@ class Int8Conv(nn.Module):
 
 class ResNet18Int8Module(nn.Module):
     """The quantized forward of any depth of the family on ``device``: fp32
-    NCHW images -> fp32 logits, bit-exact with the golden
-    ``forward_golden``.
+    NCHW images, or int8 ones quantized with ``s_input``, -> fp32 logits,
+    bit-exact with the golden ``forward_golden``.
 
     Weights are uploaded once, here, in the layouts the kernels read: the
     trunk's conv weights channels-last (a 1x1 c3's is then [O, C]
@@ -726,23 +731,28 @@ class ResNet18Int8Module(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The kernels on CUDA tensors, the plain versions on CPU ones."""
-        return self._forward(x, stem_conv_pool, conv2d_int8, matmul_int8,
-                             bsr_matmul_wt, expand_add_int8)
+        return self._forward(x, stem_conv_pool, stem_conv_pool_int8,
+                             conv2d_int8, matmul_int8, bsr_matmul_wt,
+                             expand_add_int8)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch versions of every kernel, on any device."""
-        return self._forward(x, stem_conv_pool_plain, conv2d_int8_plain,
+        return self._forward(x, stem_conv_pool_plain,
+                             stem_conv_pool_int8_plain, conv2d_int8_plain,
                              matmul_int8_plain, bsr_matmul_wt_plain,
                              expand_add_int8_plain)
 
-    def _forward(self, x, stem, conv, matmul, bsr, expand):
+    def _forward(self, x, stem, stem_int8, conv, matmul, bsr, expand):
+        int8_in = x.dtype == torch.int8
+        st = self.stem
         if self.small_input:
-            a = F.pad(quantize_input(x, self.s_input), (0, 0, 0, 0, 0, 1))
-            a = self.stem(a.contiguous(memory_format=torch.channels_last),
-                          conv)
+            a = x if int8_in else quantize_input(x, self.s_input)
+            a = F.pad(a, (0, 0, 0, 0, 0, 1))
+            a = st(a.contiguous(memory_format=torch.channels_last), conv)
+        elif int8_in:
+            a = stem_int8(x, st.weight, st.bias, st.factors)
         else:
-            a = stem(x, self.stem.weight, self.stem.bias, self.stem.factors,
-                     self.s_input)
+            a = stem(x, st.weight, st.bias, st.factors, self.s_input)
         for convs, rs in zip(self.blocks, self.res_scales):
             y = convs["c1"](a, conv, bsr)
             r = convs["ds"](a, conv, bsr) if "ds" in convs else a

@@ -1,4 +1,4 @@
-"""The compute path: the six kernel wrappers with their plain versions,
+"""The compute path: the eight kernel wrappers with their plain versions,
 the int8 epilogues and pools they share, and the gather-compact BSR
 product of the LM's projections."""
 
@@ -32,6 +32,11 @@ from resnet_accel_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
 )
+from resnet_accel_tpu_torch.ops.fused_stem import (
+    fused_stem_pool,
+    stem_conv_pool_int8,
+    stem_conv_pool_int8_plain,
+)
 from resnet_accel_tpu_torch.ops.matmul_int8 import (
     matmul_int8,
     matmul_int8_plain,
@@ -39,6 +44,10 @@ from resnet_accel_tpu_torch.ops.matmul_int8 import (
 from resnet_accel_tpu_torch.ops.pooling import (
     avgpool_global_int8,
     maxpool2d_int8,
+)
+from resnet_accel_tpu_torch.ops.sparse_conv import (
+    sparse_conv2d_int8,
+    sparse_conv2d_int8_plain,
 )
 from resnet_accel_tpu_torch.ops.stem_fused import (
     stem_conv_pool,
@@ -60,6 +69,7 @@ __all__ = [
     "expand_add_int8_plain",
     "flash_attention",
     "flash_attention_plain",
+    "fused_stem_pool",
     "im2col_nchw",
     "matmul_int8",
     "matmul_int8_plain",
@@ -70,6 +80,10 @@ __all__ = [
     "quantize_input",
     "requant_factors",
     "requantize",
+    "sparse_conv2d_int8",
+    "sparse_conv2d_int8_plain",
     "stem_conv_pool",
+    "stem_conv_pool_int8",
+    "stem_conv_pool_int8_plain",
     "stem_conv_pool_plain",
 ]

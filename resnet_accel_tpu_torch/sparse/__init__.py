@@ -1,4 +1,5 @@
-"""Block-sparse (BSR) weight matrices, in numpy."""
+"""Block-sparse (BSR) weight matrices and tap-aligned block-sparse conv
+weights, in numpy."""
 
 from resnet_accel_tpu_torch.sparse.bsr import (
     REF_BLOCK,
@@ -7,6 +8,14 @@ from resnet_accel_tpu_torch.sparse.bsr import (
     build_bsr_int8_direct,
     round_up,
 )
+from resnet_accel_tpu_torch.sparse.conv_bsr import (
+    ConvBSR,
+    PackedConvBSR,
+    device_pack,
+    pack_conv_bsr,
+    tap_sparse_weight,
+)
 
-__all__ = ["REF_BLOCK", "BSRMatrix", "build_bsr", "build_bsr_int8_direct",
-           "round_up"]
+__all__ = ["REF_BLOCK", "BSRMatrix", "ConvBSR", "PackedConvBSR",
+           "build_bsr", "build_bsr_int8_direct", "device_pack",
+           "pack_conv_bsr", "round_up", "tap_sparse_weight"]

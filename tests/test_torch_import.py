@@ -28,6 +28,9 @@ def test_import_leaves_jax_out():
             "import resnet_accel_tpu_torch.runtime.engine\n"
             "import resnet_accel_tpu_torch.ops, resnet_accel_tpu_torch._kernels\n"
             "import resnet_accel_tpu_torch.models.lm\n"
+            "import resnet_accel_tpu_torch.ops.sparse_conv\n"
+            "import resnet_accel_tpu_torch.ops.fused_stem\n"
+            "import resnet_accel_tpu_torch.sparse.conv_bsr\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'resnet_accel_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'resnet_accel_tpu.')))\n"

@@ -275,3 +275,135 @@ def test_flash_attention_refuses_wide_heads(cuda):
     q = torch.zeros((2, 8, 160), device=cuda)
     with pytest.raises(ValueError, match="dh <= 128"):
         ops.flash_attention(q, q, q)
+
+
+# The K2′ and K9 shapes (tests/test_conv_bm.py, tests/test_conv_pm.py):
+# K2 computes those kernels' function; tests/test_torch_conv_routes.py
+# holds them against K2's plain version on the CPU.
+@pytest.mark.parametrize("C,H,W,join", [
+    (64, 8, 8, False), (64, 8, 8, True), (8, 6, 5, False), (16, 4, 3, False),
+    (8, 5, 4, True), (8, 4, 3, True)])
+def test_conv_route_shapes(cuda, C, H, W, join):
+    rng = np.random.default_rng(C + H + W)
+    cl = torch.channels_last
+    x = _t(_i8(rng, (128, C, H, W)), cuda).contiguous(memory_format=cl)
+    w = ops.pack_weight(_i8(rng, (C, C * 9)), C, 3, cuda)
+    bias = _t(rng.integers(-8000, 8000, C).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, C) * 0.011 / np.sqrt(C * 9)).astype(
+        np.float32), cuda)
+    kw = dict(padding=1, relu=not join)
+    if join:
+        r = _t(_i8(rng, (128, C, H, W)), cuda).contiguous(memory_format=cl)
+        kw.update(residual=r, res_scales=(0.043719, 0.029153, 0.061347))
+    got = ops.conv2d_int8(x, w, bias, f, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.conv2d_int8_plain(x, w, bias, f, **kw))
+
+
+def _sconv_case(cuda, N, C, O, H, k, stride, block_o, block_c, sparsity,
+                seed):
+    from resnet_accel_tpu_torch.sparse import (device_pack, pack_conv_bsr,
+                                               tap_sparse_weight)
+    rng = np.random.default_rng(seed)
+    w = tap_sparse_weight(rng, O, C, k, sparsity, block_o, block_c)
+    x = _t(_i8(rng, (N, C, H, H)), cuda).contiguous(
+        memory_format=torch.channels_last)
+    packed = device_pack(pack_conv_bsr(w, padding=k // 2, block_o=block_o,
+                                       block_c=block_c), cuda)
+    bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
+    # acc has std ~ 74 * 74 * sqrt(C*k*k * (1 - sparsity)); scale to ~ 60
+    f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(
+        C * k * k * max(1 - sparsity, 0.1))).astype(np.float32), cuda)
+    return w, x, packed, bias, f
+
+
+# tests/test_sparse_conv.py's shapes (3x3 stride 1 and 2, the 1x1/s2
+# downsample at block_c 64 -- here with two output blocks, one of them
+# empty --, 64-wide blocks, O = 100 at block_o 104) and the conv sweep's
+# l3.c1 at batch 64 (one of its two output blocks empty too).
+@pytest.mark.parametrize("N,C,O,H,k,stride,block_o,block_c,sparsity", [
+    (2, 128, 128, 10, 3, 1, 128, 128, 0.5), (2, 128, 128, 9, 3, 2, 128, 128,
+                                             0.4),
+    (2, 64, 256, 8, 1, 2, 128, 64, 0.5), (1, 64, 64, 9, 3, 2, 64, 64, 0.4),
+    (3, 128, 100, 6, 3, 1, 128, None, 0.0),
+    (64, 128, 256, 28, 3, 2, 128, None, 0.7)])
+@pytest.mark.parametrize("mode", ["int32", "int32+bias+relu", "requant"])
+def test_sparse_conv(cuda, N, C, O, H, k, stride, block_o, block_c, sparsity,
+                     mode):
+    w, x, packed, bias, f = _sconv_case(cuda, N, C, O, H, k, stride,
+                                        block_o, block_c, sparsity, C + O + H)
+    kw = dict(stride=stride)
+    if mode != "int32":
+        kw.update(bias=bias, relu=True)
+    if mode == "requant":
+        kw.update(factors=f)
+    before = _kernels.launch_counts()["sparse_conv"]
+    got = ops.sparse_conv2d_int8(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["sparse_conv"] == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = ops.sparse_conv2d_int8_plain(x, packed, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if mode == "requant":
+        # the dense K2 on the same weights gives the same bits
+        wd = ops.pack_weight(w.reshape(O, -1), C, k, cuda)
+        assert torch.equal(got, ops.conv2d_int8(
+            x, wd, bias, f, stride=stride, padding=k // 2, relu=True))
+        assert int(want.max()) - int(want.min()) > 100
+
+
+def test_sparse_conv_empty_output_block(cuda):
+    """Output blocks with no stored block still write the epilogue: the
+    bias through ReLU and requant, or zeros without a bias."""
+    w, x, packed, bias, f = _sconv_case(cuda, 2, 128, 256, 6, 3, 1, 128,
+                                        None, 0.0, 5)
+    from resnet_accel_tpu_torch.sparse import device_pack, pack_conv_bsr
+    w[128:] = 0
+    packed = device_pack(pack_conv_bsr(w, padding=1), cuda)
+    assert packed.o_ptr.tolist()[1] == packed.o_ptr.tolist()[2]
+    got = ops.sparse_conv2d_int8(x, packed, bias=bias, factors=f, relu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.sparse_conv2d_int8_plain(
+        x, packed, bias=bias, factors=f, relu=True))
+    empty = ops.requantize(bias[128:].clamp_min(0), f[128:])
+    assert torch.equal(got[:, 128:], empty.view(1, -1, 1, 1).expand(
+        2, -1, 6, 6))
+    zeros = ops.sparse_conv2d_int8(x, device_pack(pack_conv_bsr(
+        np.zeros_like(w), padding=1), cuda))
+    torch.cuda.synchronize()
+    assert zeros.dtype == torch.int32 and not zeros.any()
+
+
+def test_sparse_conv_refuses_block_shape(cuda):
+    from resnet_accel_tpu_torch.sparse import device_pack, pack_conv_bsr
+    packed = device_pack(pack_conv_bsr(np.ones((16, 16, 3, 3), np.int8),
+                                       padding=1), cuda)
+    x = torch.zeros((1, 16, 4, 4), dtype=torch.int8, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="block_c % 32"):
+        ops.sparse_conv2d_int8(x, packed)
+
+
+# K10 at ResNet-18's stem (224) and at a size whose pooled output (58) and
+# conv output (116) are not multiples of the tiles; pooled, it equals K1 on
+# the fp32 images the int8 ones came from.
+@pytest.mark.parametrize("N,H,W", [(2, 224, 224), (2, 232, 232),
+                                   (1, 37, 50)])
+@pytest.mark.parametrize("pool", [True, False])
+def test_stem_int8(cuda, N, H, W, pool):
+    rng = np.random.default_rng(H + W)
+    x = _t(rng.normal(0, 1, (N, 3, H, W)).astype(np.float32), cuda)
+    w = _t(_i8(rng, (64, 3, 7, 7)), cuda)
+    bias = _t(rng.integers(-5000, 5000, 64).astype(np.int32), cuda)
+    f = _t(rng.uniform(0.001, 0.01, 64).astype(np.float32), cuda)
+    scale = float(x.abs().max().item() / 127.0)
+    q = ops.quantize_input(x, scale)
+    before = _kernels.launch_counts()["stem_int8"]
+    got = ops.stem_conv_pool_int8(q, w, bias, f, pool=pool)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["stem_int8"] == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ops.stem_conv_pool_int8_plain(q, w, bias, f,
+                                                           pool))
+    if pool:
+        assert torch.equal(got, ops.stem_conv_pool(x, w, bias, f, scale))

@@ -20,7 +20,8 @@ from resnet_accel_tpu.ops.matmul_int8 import matmul_int8 as j_matmul_int8
 from resnet_accel_tpu.ops.stem_fused import stem_conv_pool_nm
 from resnet_accel_tpu_torch import _kernels
 from resnet_accel_tpu_torch import ops
-from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+from resnet_accel_tpu_torch.sparse import (build_bsr_int8_direct,
+                                           device_pack, pack_conv_bsr)
 
 torch.set_num_threads(2)
 
@@ -269,6 +270,14 @@ class TestDispatch:
         q = torch.zeros(2, 8, 16, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             ops.flash_attention(q, q, q, causal=True)
+        cpk = device_pack(pack_conv_bsr(np.ones((8, 32, 3, 3), np.int8), 1),
+                          "meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.sparse_conv2d_int8(torch.zeros((1, 32, 4, 4), dtype=torch.int8,
+                                               device="meta"), cpk)
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.stem_conv_pool_int8(torch.zeros(1, 3, 8, 8, dtype=torch.int8,
+                                                device="meta"), w, v, v)
 
     def test_plain_path_counts_no_launch(self):
         _kernels.reset_launch_counts()
@@ -284,9 +293,16 @@ class TestDispatch:
                             torch.ones(8), z, 1.0, 1.0, 1.0)
         q = torch.ones(2, 8, 16)
         ops.flash_attention(q, q, q, causal=True)
+        cpk = device_pack(pack_conv_bsr(np.ones((8, 32, 3, 3), np.int8), 1),
+                          "cpu")
+        ops.sparse_conv2d_int8(torch.zeros((1, 32, 4, 4), dtype=torch.int8),
+                               cpk)
+        ops.stem_conv_pool_int8(torch.zeros((1, 3, 16, 16), dtype=torch.int8),
+                                _t(w.reshape(64, 3, 7, 7)), _t(bias), _t(f))
         assert _kernels.launch_counts() == {
             "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0,
-            "bsr_matmul": 0, "expand_add": 0, "flash_attention": 0}
+            "bsr_matmul": 0, "expand_add": 0, "flash_attention": 0,
+            "sparse_conv": 0, "stem_int8": 0}
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
