@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch port on one CUDA card: dense INT8 ResNet-18
 and ResNet-50 serving, block-sparse ResNet-18, the INT8 MNIST CNN, greedy
-generation on the INT8 block-sparse decoder LM, the zero-skip conv sweep
-and the int8-input stream.
+generation on the INT8 block-sparse decoder LM, the zero-skip conv sweep,
+the int8-input stream, ResNet-18 on the space-to-depth stem, the
+block-sparse kernels at the reference's 14 x 14 blocks, and the probes.
 
     python3 chip_smoke.py
 
 Needs one card, nvcc and the repo checkout; exits non-zero (and prints no
 result line) without them.  Phases, each fatal on failure:
 
-1. Build the eight kernels from ``resnet_accel_tpu_torch/csrc`` with nvcc.
+1. Build the kernels and probes from ``resnet_accel_tpu_torch/csrc`` with
+   nvcc.
 2. Hold K1-K3 against their plain PyTorch versions on the card, bit for
    bit, at the dense path's shapes and values: a seed-0 ResNet-18
    (ImageNet geometry, 1000 classes), quantized and calibrated on the CPU,
@@ -88,12 +90,38 @@ result line) without them.  Phases, each fatal on failure:
    the fp32-input forward of the same images and for two images to the
    plain path on the CPU.  Prints the stream's img/s and the int8- and
    fp32-input forwards' times.
+18. K6 at the batch-128 stem on the seed-0 images, on exact rounding ties
+   and saturating values, and at batches 1 and 3, against its plain
+   version, bit for bit; its time, plain time and bound.
+19. The space-to-depth stem (K6, K2's 4x4 conv on ``stem_s2d_weights``
+   padded ((2, 1), (2, 1)), the max pool) against K1 on the same images,
+   bit for bit, with the time of each part beside K1's.
+20. Three batches of 128 through ``InferenceEngine(device="cuda",
+   stem_fused=False)``, counts reset just before: K6, K2 and K3 must
+   launch and K1 must not.  The logits must be finite, bit-identical to
+   the plain path on the card, to the default (K1) route and for two
+   images to the plain path on the CPU; a batch of 100 and an int8 batch
+   on the route must equal the default route.  Prints both routes'
+   img/s, in the order default, s2d, s2d, default.
+21. K4 at 14 x 14 blocks: the MNIST CNN's fc1 (against its plain version;
+   the engine's logits against the plain path on the card and the CPU,
+   counts reset just before), the GEMM M = 512, N = K = 2048 at 0.7 (with
+   the 128 x 128 case beside it), and the seed-0 ResNet-18 pruned 0.7 at
+   14 x 14 at batch 8 (K4 against plain at each sparse conv, with the
+   128 x 128 model's times; the engine's logits against the plain path
+   and the dense forward of the pruned model).
+22. K8 at block_c 16, block_o 14 on the sweep's l3.c1 and l4.ds, against
+   its plain version and the dense K2, bit for bit.
+23. The probes (``resnet_accel_tpu_torch/probes.py``): ``mma_s8_rate`` at
+   K1's and K2's GEMM shapes, ``chain_rate`` (int32 max, f32 requant) and
+   K1's tile with stages knocked out, each on a line of its own.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the seven served paths; ms the kernel's time summed over the shapes of the
+the served paths; ms the kernel's time summed over the shapes of the
 paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
 K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5, the
-sweep's four cases for K8, the pooled stem for K10;
+sweep's four cases for K8, the pooled stem for K10, the batch-128 stem for
+K6;
 bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
 and operations / the peak of their type; library_ms the PyTorch call timed
 beside the kernel, summed the same way, or null); the last is
@@ -291,7 +319,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(repo, "resnet_accel_tpu_torch")):
         fail(f"no resnet_accel_tpu_torch package beside {__file__}")
     sys.path.insert(0, repo)
-    from resnet_accel_tpu_torch import _kernels, cli
+    from resnet_accel_tpu_torch import _kernels, cli, probes
     from resnet_accel_tpu_torch.models.lm import TransformerLMInt8
     from resnet_accel_tpu_torch.models.mnist_cnn import (
         MNISTCNNInt8, MNISTCNNInt8Module)
@@ -305,9 +333,10 @@ def main() -> None:
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
         expand_add_int8_plain, flash_attention, flash_attention_plain,
         im2col_nchw, matmul_int8, matmul_int8_plain,
-        maxpool2d_int8, pack_weight, quantize_input, sparse_conv2d_int8,
-        sparse_conv2d_int8_plain, stem_conv_pool, stem_conv_pool_int8,
-        stem_conv_pool_int8_plain, stem_conv_pool_plain)
+        maxpool2d_int8, pack_bsr, pack_weight, quantize_input, quantize_s2d,
+        quantize_s2d_nchw, sparse_conv2d_int8, sparse_conv2d_int8_plain,
+        stem_conv_pool, stem_conv_pool_int8, stem_conv_pool_int8_plain,
+        stem_conv_pool_plain, stem_s2d_weights)
     from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
                                                        QuantizingLoader,
                                                        preprocess_mnist)
@@ -346,6 +375,7 @@ def main() -> None:
     stats = {k: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "bytes_ms": 0.0,
                  "ops_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
              for k in _kernels.KERNELS}
+    last_check = {}     # the times of the last check()
 
     def check(kernel, name, fn, plain, shape, work, library=None, iters=10,
               plain_iters=3, timed=True, tol=0.0):
@@ -361,6 +391,7 @@ def main() -> None:
         s["err"] = max(s["err"], err)
         ms, pms = time_ms(fn, iters), time_ms(plain, plain_iters)
         b_ms, o_ms = bound_ms(*work(want))
+        last_check.update(ms=ms, plain_ms=pms, bound_ms=max(b_ms, o_ms))
         lib = ""
         lms = None
         if library is not None:
@@ -949,7 +980,7 @@ def main() -> None:
 
     # ---- 15. the conv sweep: K8 against its plain version and K2 ------
     sweep_rng = np.random.default_rng(1)      # bench --conv's data
-    speedups = {}
+    speedups, k8_case_ms = {}, {}
     with torch.inference_mode():
         for name, C, O, H, k, s, p in cli.CONV_CASES:
             xs = torch.from_numpy(sweep_rng.integers(
@@ -971,6 +1002,7 @@ def main() -> None:
                         f"x{list(xs.shape)} k{k} s{s} O{O} "
                         f"{pk.nnz_source}/{pk.total_source} blocks", work)
             k8_ms = stats["sparse_conv"]["ms"] - ms0
+            k8_case_ms[name] = k8_ms
 
             def dense():
                 return conv2d_int8(xs, wd, zero, fct, stride=s, padding=p,
@@ -1073,9 +1105,321 @@ def main() -> None:
           f"fp32 input {t_fp32:.3f} ms (median of 10)  ({label})")
     del qengine
 
+    # ---- 18. K6 at the stem's batch, ties, odd batches ------------------
+    s_in = model.s_input
+    with torch.inference_mode():
+        def k6_work(out):
+            return (x0.numel() * 4 + out.numel(), x0.numel(), "fp32")
+        check("stem_pack", "stem",
+              lambda: quantize_s2d(x0, s_in),
+              lambda: quantize_s2d_nchw(x0, s_in),
+              f"x{list(x0.shape)} fp32", k6_work)
+        print(f"{'':12s} K6 bound at batch {BATCH}: "
+              f"{last_check['bound_ms']:.4f} ms (bytes: "
+              f"{x0.numel() * 4 / 1e6:.2f} MB in, "
+              f"{x0.numel() / 1e6:.2f} MB out)  ({label})")
+        k = np.arange(-140, 140, dtype=np.float32)
+        ties = np.concatenate([(k + np.float32(0.5)) * np.float32(s_in),
+                               k * np.float32(s_in),
+                               np.float32([1e6, -1e6, 0.0, -0.0])])
+        ties = np.resize(ties, (3, 3, 20, 12)).astype(np.float32)
+        want = np.clip(np.rint(ties / np.float32(s_in)), -128, 127).astype(
+            np.int8).reshape(3, 3, 10, 2, 6, 2).transpose(
+            0, 1, 3, 5, 2, 4).reshape(3, 12, 10, 6)
+        for xs in (torch.from_numpy(ties).to(dev), x0[:1], x0[:3]):
+            got = quantize_s2d(xs, s_in)
+            torch.cuda.synchronize()
+            if not torch.equal(got, quantize_s2d_nchw(xs, s_in)):
+                fail(f"K6 differs from its plain version at "
+                     f"{list(xs.shape)}")
+        if not np.array_equal(quantize_s2d(torch.from_numpy(ties).to(dev),
+                                           s_in).cpu().numpy(), want):
+            fail("K6 rounds the ties apart from numpy's rint(x / s)")
+    print(f"K6 equals its plain version at batch {BATCH}, 1 and 3, and on "
+          f"{ties.size} values with exact ties and saturation  ({label})")
+
+    # ---- 19. the space-to-depth stem against K1 --------------------------
+    st = mod.stem
+    w4 = pack_weight(stem_s2d_weights(model.stem.w2d, 3, 7), 12, 4, dev)
+    pad = ((2, 1), (2, 1))
+    with torch.inference_mode():
+        q12 = quantize_s2d(x0, s_in)
+        pre = conv2d_int8(q12, w4, st.bias, st.factors, padding=pad,
+                          relu=True)
+        route = maxpool2d_int8(pre, 3, 2, padding=1)
+        k1 = stem_conv_pool(x0, st.weight, st.bias, st.factors, s_in)
+        if not torch.equal(route, k1):
+            fail("K6 -> K2 4x4 -> max pool differs from K1")
+        parts = {
+            "K6": time_ms(lambda: quantize_s2d(x0, s_in), 10),
+            "K2 4x4": time_ms(lambda: conv2d_int8(
+                q12, w4, st.bias, st.factors, padding=pad, relu=True), 10),
+            "max pool": time_ms(lambda: maxpool2d_int8(
+                pre, 3, 2, padding=1).contiguous(memory_format=cl), 10),
+            "K1": time_ms(lambda: stem_conv_pool(x0, st.weight, st.bias,
+                                                 st.factors, s_in), 10)}
+
+        def conv_work(out):
+            return (q12.numel() + w4.numel() + 8 * 64 + out.numel(),
+                    2 * out.numel() * w4[0].numel(), "int8")
+        check("conv_int8", "stem4", lambda: conv2d_int8(
+            q12, w4, st.bias, st.factors, padding=pad, relu=True),
+            lambda: conv2d_int8_plain(q12, w4, st.bias, st.factors,
+                                      padding=pad, relu=True),
+            f"x{list(q12.shape)} k4 s1 O64 pad((2,1),(2,1))", conv_work,
+            timed=False)
+    s2d_ms = parts["K6"] + parts["K2 4x4"] + parts["max pool"]
+    print(f"s2d stem at batch {BATCH}: equal to K1 bit for bit; "
+          + ", ".join(f"{n} {v:.4f} ms" for n, v in parts.items())
+          + f"; the three parts {s2d_ms:.4f} ms against K1 "
+          f"{parts['K1']:.4f} ms  ({label})")
+
+    # ---- 20. the space-to-depth route served ---------------------------
+    rengine = InferenceEngine(model, device="cuda", stem_fused=False)
+    rresults, rlaunches = served_launches(
+        _kernels, lambda: [rengine.run_inference(xb) for xb in batches],
+        ["stem_pack", "conv_int8", "matmul_int8"],
+        f"ResNet-18 on the s2d stem route, {len(batches)} batches of "
+        f"{BATCH}")
+    if rlaunches["stem_fused"] != 0 or rlaunches["stem_pack"] != len(
+            batches):
+        fail(f"the s2d route launched K1 {rlaunches['stem_fused']} and K6 "
+             f"{rlaunches['stem_pack']} times")
+    with torch.inference_mode():
+        for b, (xb, res) in enumerate(zip(batches, rresults)):
+            if res.logits.shape != (BATCH, CLASSES) or \
+                    not np.isfinite(res.logits).all():
+                fail(f"s2d route batch {b}: logits {res.logits.shape} not "
+                     f"finite")
+            xt = torch.from_numpy(xb).to(dev)
+            for what, ref in (
+                    ("the plain path", rengine.module.forward_plain(xt)),
+                    ("the default (K1) route", mod(xt))):
+                if not np.array_equal(res.logits, ref.cpu().numpy()):
+                    fail(f"s2d route batch {b}: logits differ from {what}")
+        cpu = ResNet18Int8Module(model, "cpu", stem_fused=False)(
+            torch.from_numpy(batches[0][:2])).numpy()
+        if not np.array_equal(rresults[0].logits[:2], cpu):
+            fail("s2d route logits differ from the plain path on the CPU")
+        x100 = torch.from_numpy(batches[1][:100]).to(dev)
+        q0 = quantize_input(x0, s_in)
+        _kernels.reset_launch_counts()
+        odd, q_route = rengine.module(x100), rengine.module(q0)
+        torch.cuda.synchronize()
+        c = _kernels.launch_counts()
+        if c["stem_pack"] != 1 or c["stem_fused"] or c["stem_int8"]:
+            fail(f"batch 100 and int8 input on the route launched {c}")
+        if not (torch.equal(odd, mod(x100)) and torch.equal(q_route, mod(q0))
+                and torch.equal(q_route, mod(x0))):
+            fail("the route's batch of 100 or its int8 batch differs from "
+                 "the default route")
+    print(f"s2d route logits: {len(batches)} x [{BATCH}, {CLASSES}] finite, "
+          f"bit-identical to the plain path on the card, to the default "
+          f"(K1) route and (2 images) on the CPU; a batch of 100 and an "
+          f"int8 batch (space_to_depth_nchw -> K2) equal the default route")
+    dengine = InferenceEngine(model, device="cuda")
+    for eng, what in ((dengine, "default (K1)"), (rengine, "s2d (K6, K2)"),
+                      (rengine, "s2d (K6, K2)"), (dengine, "default (K1)")):
+        bench = eng.benchmark(batches[0], iters=10)
+        print(f"ResNet-18 {what:13s} stem, forward batch {BATCH}: "
+              f"{bench.latency_s * 1e3:.3f} ms median, "
+              f"{bench.images_per_s:.1f} img/s  ({label})")
+    print(f"s2d route run_inference incl. copies: "
+          f"{[round(r.images_per_s, 1) for r in rresults]} img/s  ({label})")
+    del rengine, dengine
+
+    # ---- 21. K4 at the reference's 14 x 14 blocks -----------------------
+    with tempfile.TemporaryDirectory() as tmp14:
+        mnist_int8_dir(tmp14, SEED)
+        mnist14 = MNISTCNNInt8.from_int8_dir(tmp14, digits).with_fc1_bsr(14)
+    print(f"MNIST CNN at 14 x 14: fc1 {mnist14.fc1_bsr.nnz_blocks}/"
+          f"{mnist14.fc1_bsr.total_blocks} blocks stored, sparsity "
+          f"{mnist14.sparsity_report()}")
+    m14engine = InferenceEngine(mnist14, device="cuda")
+    mm14 = m14engine.module
+    with torch.inference_mode():
+        xt = torch.from_numpy(xm).to(dev)
+        f = torch.nn.functional.pad(quantize_input(xt, mm14.s_input),
+                                    (0, 0, 0, 0, 0, 3))
+        f = conv2d_int8(f.contiguous(memory_format=cl), mm14.conv1_w,
+                        mm14.conv1_b, mm14.conv1_f, relu=True)
+        f = conv2d_int8(f, mm14.conv2_w, mm14.conv2_b, mm14.conv2_f,
+                        relu=True)
+        f = maxpool2d_int8(f, 2, 2).contiguous().reshape(BATCH, -1)
+        kw = dict(bias=mm14.fc1_b, factors=mm14.fc1_f, relu=True)
+        pk = mm14.fc1_packed
+        check("bsr_matmul", "fc1@14",
+              lambda: bsr_matmul_wt(f, pk, **kw),
+              lambda: bsr_matmul_wt_plain(f, pk, **kw),
+              f"A{list(f.shape)} N{pk.n_out} "
+              f"{pk.nnz_source}/{pk.total_source} blocks 14x14",
+              lambda out: bsr_work(f, pk, out),
+              library=int_mm_call(f, densify(pk)), timed=False)
+    m14res, m14launches = served_launches(
+        _kernels, lambda: m14engine.run_inference(xm),
+        ["conv_int8", "matmul_int8", "bsr_matmul"],
+        f"MNIST CNN with fc1 at 14 x 14, a batch of {BATCH}")
+    with torch.inference_mode():
+        plain = mm14.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
+        cpu = MNISTCNNInt8Module(mnist14, "cpu")(torch.from_numpy(xm)).numpy()
+    if not (np.array_equal(m14res.logits, plain)
+            and np.array_equal(m14res.logits, cpu)
+            and np.array_equal(m14res.logits, mres.logits)):
+        fail("MNIST logits at 14 x 14 differ from the plain path or the "
+             "128 x 128 model")
+    print(f"MNIST logits at 14 x 14 bit-identical to the plain path on the "
+          f"card, on the CPU and to the 128 x 128 model's")
+
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    g_rng = np.random.default_rng(SEED + 3)
+    W = g_rng.integers(-128, 128, (2048, 2048)).astype(np.int8)
+    A = torch.from_numpy(g_rng.integers(-128, 128, (512, 2048)).astype(
+        np.int8)).to(dev)
+    with torch.inference_mode():
+        for blk in (14, 128):
+            nb = -(-2048 // blk)
+            keep = np.repeat(np.repeat(g_rng.random((nb, nb)) >= SPARSITY,
+                                       blk, 0), blk, 1)[:2048, :2048]
+            pk = pack_bsr(build_bsr_int8_direct(W * keep, blk), dev)
+            check("bsr_matmul", f"gemm{blk}",
+                  lambda: bsr_matmul_wt(A, pk), lambda: bsr_matmul_wt_plain(
+                      A, pk), f"A[512, 2048] N2048 {pk.nnz_source}/"
+                  f"{pk.total_source} blocks {blk}x{blk}",
+                  lambda out: bsr_work(A, pk, out),
+                  library=int_mm_call(A, densify(pk)), timed=False)
+            if not torch.equal(bsr_matmul_wt(A, pk).cpu().to(torch.int64),
+                               A.cpu().to(torch.int64) @ torch.from_numpy(
+                                   W * keep).to(torch.int64).t()):
+                fail(f"K4 at {blk} x {blk} differs from the dense product")
+
+    t0 = time.perf_counter()
+    calib_img = np.random.default_rng(SEED).normal(
+        0, 1, (2, 3, HW, HW)).astype(np.float32)   # the calibration above
+    pruned14 = quantize_resnet18(
+        prune_params_blockwise(params, sparsity=SPARSITY, block=14),
+        calib_img, CLASSES)
+    sparse14 = attach_bsr(pruned14, block=14, min_sparsity=0.25)
+    n14 = sum(qc.bsr is not None for _, qc in sparse14.named_convs())
+    print(f"prune {SPARSITY} at 14, quantize, attach BSR on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s; {n14} sparse convs")
+    x8 = x0[:8]
+
+    def k4_walk(model_, what):
+        """K4 against its plain version at each sparse conv of a batch of
+        8; the summed K4 and plain times."""
+        m = ResNet18Int8Module(model_, dev).eval()
+        tot = plain_tot = 0.0
+        with torch.inference_mode():
+            a = stem_conv_pool(x8, m.stem.weight, m.stem.bias,
+                               m.stem.factors, m.s_input)
+            for i, (convs, rs) in enumerate(zip(m.blocks, m.res_scales)):
+                def run(tag, inp, **join):
+                    nonlocal tot, plain_tot
+                    cv = convs[tag]
+                    if cv.packed is not None:
+                        A = im2col_nchw(inp, cv.kernel, cv.stride,
+                                        cv.padding).reshape(
+                            -1, inp.shape[1] * cv.kernel ** 2)
+                        pk = cv.packed
+                        kw = dict(bias=cv.bias, factors=cv.factors,
+                                  relu=cv.relu)
+                        check("bsr_matmul", f"b{i}.{tag}",
+                              lambda: bsr_matmul_wt(A, pk, **kw),
+                              lambda: bsr_matmul_wt_plain(A, pk, **kw),
+                              f"A{list(A.shape)} {pk.nnz_source}/"
+                              f"{pk.total_source} blocks {what}",
+                              lambda out: bsr_work(A, pk, out), timed=False)
+                        tot += last_check["ms"]
+                        plain_tot += last_check["plain_ms"]
+                    return cv(inp, conv2d_int8, bsr_matmul_wt, **join)
+                y = run("c1", a)
+                r = run("ds", a) if "ds" in convs else a
+                a = run("c2", y, residual=r, res_scales=rs)
+        return tot, plain_tot
+    k4_14, k4_14p = k4_walk(sparse14, "14x14")
+    k4_128, _ = k4_walk(sparse, "128x128")
+    print(f"K4 over the sparse ResNet-18's convs at batch 8: 14 x 14 "
+          f"{k4_14:.4f} ms (plain {k4_14p:.4f}), 128 x 128 {k4_128:.4f} ms; "
+          f"at batch {BATCH}, 128 x 128: {s4['ms']:.4f} ms  ({label})")
+    s14engine = InferenceEngine(sparse14, device="cuda")
+    x8np = batches[0][:8]
+    s14res, s14launches = served_launches(
+        _kernels, lambda: s14engine.run_inference(x8np),
+        ["stem_fused", "matmul_int8", "bsr_matmul"],   # every conv is sparse
+        "sparse ResNet-18 at 14 x 14, a batch of 8")
+    with torch.inference_mode():
+        for what, ref in (
+                ("the plain path", s14engine.module.forward_plain(x8)),
+                ("the dense forward of the pruned model",
+                 ResNet18Int8Module(pruned14, dev)(x8))):
+            if s14res.logits.shape != (8, CLASSES) or not np.array_equal(
+                    s14res.logits, ref.cpu().numpy()):
+                fail(f"sparse 14 x 14 logits differ from {what}")
+    print("sparse ResNet-18 at 14 x 14: logits [8, 1000] bit-identical to "
+          "the plain path and to the dense forward of the pruned model")
+    del s14engine, m14engine
+
+    # ---- 22. K8 at block_c 16, block_o 14 --------------------------------
+    k_rng = np.random.default_rng(SEED + 4)
+    with torch.inference_mode():
+        for name, C, O, Hs, k, s, p in cli.CONV_CASES:
+            if name.split()[0] not in ("l3.c1", "l4.ds"):
+                continue
+            xs = torch.from_numpy(k_rng.integers(
+                -128, 128, (SWEEP_BATCH, C, Hs, Hs)).astype(np.int8)).to(
+                dev).contiguous(memory_format=cl)
+            w = tap_sparse_weight(k_rng, O, C, k, SWEEP_SPARSITY,
+                                  block_o=14, block_c=16)
+            fct = torch.full((O,), 0.001, dtype=torch.float32, device=dev)
+            zero = torch.zeros(O, dtype=torch.int32, device=dev)
+            pk = device_pack(pack_conv_bsr(w, padding=p, block_o=14,
+                                           block_c=16), dev)
+            kw = dict(factors=fct, relu=True, stride=s)
+            got = check("sparse_conv", name.split()[0],
+                        lambda: sparse_conv2d_int8(xs, pk, **kw),
+                        lambda: sparse_conv2d_int8_plain(xs, pk, **kw),
+                        f"x{list(xs.shape)} k{k} s{s} O{O} "
+                        f"{pk.nnz_source}/{pk.total_source} blocks 16x14",
+                        lambda out: sconv_work(xs, pk, s, out), timed=False)
+            wd = pack_weight(w.reshape(O, -1), C, k, dev)
+            if not torch.equal(got, conv2d_int8(xs, wd, zero, fct, stride=s,
+                                                padding=p, relu=True)):
+                fail(f"K8 at 16 x 14 and the dense K2 disagree at {name}")
+            print(f"{'':12s} {name}: K8 at 16 x 14 {last_check['ms']:.4f} ms "
+                  f"equal to the dense K2; at 128 x 128 "
+                  f"{k8_case_ms[name]:.4f} ms  ({label})")
+
+    # ---- 23. the probes ----------------------------------------------------
+    with torch.inference_mode():
+        for M, K in ((64, 192), (128, 192), (64, 576), (128, 576)):
+            r = probes.mma_s8_rate(M, K, dev, time_ms)
+            print(f"probe mma_s8_rate M {M} N {probes.MMA_N} K {K}: "
+                  f"{r['tops']:.1f} TOP/s ({100 * r['tops'] / 1979:.1f} % "
+                  f"of 1,979), {r['ns_per_dot']:.1f} ns a tile product "
+                  f"over {r['blocks']} blocks  ({label})")
+        for kind in probes.CHAIN_KINDS:
+            r = probes.chain_rate(kind, dev, time_ms)
+            print(f"probe chain_rate {kind}: {r['steps_per_s'] / 1e12:.3f} "
+                  f"T steps/s over {r['threads']} threads  ({label})")
+        stem_args = (x0, st.weight, st.bias, st.factors, s_in)
+        if not torch.equal(probes.stem_ablation(*stem_args, "full"), k1):
+            fail("K1's tile with no stage knocked out differs from K1")
+        abl = {mode: time_ms(lambda: probes.stem_ablation(*stem_args, mode),
+                             10) for mode in probes.STEM_MODES}
+        for mode, ms in abl.items():
+            print(f"probe K1 tile {mode:10s}: {ms:.4f} ms at batch {BATCH} "
+                  f"(K1 {parts['K1']:.4f} ms)  ({label})")
+    print(f"K1 split at batch {BATCH}: input loads + quantize (full - "
+          f"no_loads) {abl['full'] - abl['no_loads']:.4f} ms, dots + pool "
+          f"(full - stage_only) {abl['full'] - abl['stage_only']:.4f} ms, "
+          f"pool epilogue (full - no_pool) "
+          f"{abl['full'] - abl['no_pool']:.4f} ms, staging alone "
+          f"{abl['stage_only']:.4f} ms  ({label})")
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
-             + qlaunches[name] for name in _kernels.KERNELS}
+             + qlaunches[name] + rlaunches[name] + m14launches[name]
+             + s14launches[name] for name in _kernels.KERNELS}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, k in _kernels.KERNELS.items():

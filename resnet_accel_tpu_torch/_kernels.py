@@ -62,7 +62,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("conv_int8", "conv_int8_launch",
                "resnet_accel_tpu_torch/csrc/conv_int8.cu",
                "resnet_accel_tpu/ops/conv_bm.py:419",
-               [_P] * 6 + [_I] * 11 + [_F] * 3 + [_P]),
+               [_P] * 6 + [_I] * 12 + [_F] * 3 + [_P]),
         Kernel("matmul_int8", "matmul_int8_launch",
                "resnet_accel_tpu_torch/csrc/matmul_int8.cu",
                "resnet_accel_tpu/ops/matmul_int8.py:74",
@@ -87,6 +87,10 @@ KERNELS: Dict[str, Kernel] = {
                "resnet_accel_tpu_torch/csrc/stem_int8.cu",
                "resnet_accel_tpu/ops/fused_stem.py:82",
                [_P] * 5 + [_I] * 6 + [_P]),
+        Kernel("stem_pack", "stem_pack_launch",
+               "resnet_accel_tpu_torch/csrc/stem_pack.cu",
+               "resnet_accel_tpu/ops/stem_pack.py:142",
+               [_P] * 2 + [_I] * 4 + [_F, _P]),
     )
 }
 
@@ -182,18 +186,31 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def _call(symbol: str, device: torch.device, args) -> None:
+    handle = lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(handle, symbol)(*args, stream)
+    if err != 0:
+        msg = handle.kernels_error_string(err).decode()
+        raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel ``name`` on ``device``'s current stream; raise if the
     launch was refused.  ``args`` are the C arguments before the stream."""
     k = KERNELS[name]
-    handle = lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(handle, k.symbol)(*args, stream)
-    if err != 0:
-        msg = handle.kernels_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    _call(k.symbol, device, args)
     k.launches += 1
+
+
+def launch_probe(symbol: str, argtypes: List, device: torch.device,
+                 *args) -> None:
+    """Launch the probe ``symbol`` of ``csrc/probes.cu`` as :func:`launch`
+    does a kernel, but count nothing: a probe is on no path."""
+    fn = getattr(lib(), symbol)
+    fn.argtypes, fn.restype = argtypes + [_P], ctypes.c_int
+    _call(symbol, device, args)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

@@ -16,7 +16,12 @@
 //   out = requant ? clip(rint(float(acc) * factors[n]), -128, 127) : acc
 // A block row with no stored block writes its epilogue of a zero sum.
 // M, N and K may be ragged: reads of A past K and writes past N are
-// masked, so A needs no padded copy.  Takes bh % 16 == 0, bw % 32 == 0.
+// masked, so A needs no padded copy.  Any block shape (the reference's own
+// is 14 x 14): the rows of a 64-column slice past bh are zero in shared
+// memory and the epilogue stores only the block row's own bh columns;
+// when bw % 32 != 0 a block's last K step is masked too, its bytes past bw
+// zero (kWhole false: 16-byte loads for whole aligned chunks, byte loads
+// for the rest).
 //
 // What bounds it on the H100: on the served model the work is the stored
 // blocks' multiply-adds (77 G over the 18 sparse convs at batch 128, 0.3
@@ -53,6 +58,9 @@ struct BsrGeom {
   int K, N, bh, bw, nsub;   // nsub: kBN-column slices per block row
 };
 
+// kWhole: bw % 32 == 0, so every K step lies inside one block and its
+// block bytes are one aligned 16-byte load a thread.
+template <bool kWhole>
 __global__ void __launch_bounds__(kThreads, 2)
 bsr_int8_kernel(const int8_t* __restrict__ a,
                 const int8_t* __restrict__ blocks,
@@ -72,7 +80,8 @@ bsr_int8_kernel(const int8_t* __restrict__ a,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kBM;
   const int lo = row_ptr[br];
-  const int per_block = g.bw / (4 * kKW);      // steps per stored block
+  const int per_block = kWhole ? g.bw / (4 * kKW)   // steps per stored block
+                               : (g.bw + 4 * kKW - 1) / (4 * kKW);
   const int steps = (row_ptr[br + 1] - lo) * per_block;
 
   // Each thread fetches bytes [16*half, 16*half + 16) of every step for
@@ -90,6 +99,23 @@ bsr_int8_kernel(const int8_t* __restrict__ a,
     const int blk = lo + s / per_block;
     const int kb = (s % per_block) * 4 * kKW + 16 * half;  // in the block
     const int k = col_idx[blk] * g.bw + kb;                // in A
+    if constexpr (!kWhole) {
+      const int n = min(16, g.bw - kb);        // its bytes inside the block
+      if (n <= 0) return;
+      // a whole 16-byte chunk at a 16-byte aligned address: one load
+      const bool v16 = n == 16 && g.bw % 16 == 0;
+      if (a_live && k < g.K)
+        ra = v16 && vec_a ? __ldg(reinterpret_cast<const int4*>(arow + k))
+                          : load16_masked(arow + k, min(n, g.K - k));
+      if (b_live) {
+        const int8_t* brow =
+            blocks + (static_cast<int64_t>(blk) * g.bh + c0 + row) * g.bw +
+            kb;
+        rb = v16 ? __ldg(reinterpret_cast<const int4*>(brow))
+                 : load16_masked(brow, n);
+      }
+      return;
+    }
     if (a_live) {
       if (vec_a) {
         if (k < g.K) ra = __ldg(reinterpret_cast<const int4*>(arow + k));
@@ -202,7 +228,9 @@ extern "C" int bsr_matmul_launch(const void* a, const void* blocks,
                   static_cast<int>(bh), static_cast<int>(bw), nsub};
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
                   static_cast<unsigned>(nbr * nsub));
-  bsr_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = (bw % 32 == 0) ? bsr_int8_kernel<true>
+                                : bsr_int8_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(blocks),
       static_cast<const int32_t*>(row_ptr),
       static_cast<const int32_t*>(col_idx),

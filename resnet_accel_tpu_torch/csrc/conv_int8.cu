@@ -11,7 +11,10 @@
 // the Python side in torch.channels_last memory format), weights packed
 // once at load as [O, KS, KS, C] int8, so the GEMM's K index runs
 // (kh, kw, c) and a 4-byte word of input channels meets a 4-byte word of
-// weights.  C and O must be multiples of 4.
+// weights.  C and O must be multiples of 4.  The padding may differ by
+// side (the space-to-depth stem's 4x4 conv pads 2 before and 1 after):
+// the kernel takes the top and left pads, and the output size the caller
+// gives sets the bottom and right ones.
 //
 // Per output (pixel p, channel o):
 //   acc = sum_k x_patch[p, k] * w[o, k] + bias[o]   (int32, exact)
@@ -50,7 +53,7 @@ constexpr int kLd = 12;     // shared row stride in words: conflict-free
 constexpr int kThreads = 256;
 
 struct ConvGeom {
-  int N, H, W, C, O, Ho, Wo, KS, stride, pad;
+  int N, H, W, C, O, Ho, Wo, KS, stride, pad_h, pad_w;  // pad: top, left
 };
 
 // kVec: C % 32 == 0, so a K step of 8 words is one tap's 32 channels and
@@ -87,8 +90,8 @@ conv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int hw = g.Ho * g.Wo;
       const int r = static_cast<int>(gm % hw);
       pn = static_cast<int>(gm / hw);
-      ph = (r / g.Wo) * g.stride - g.pad;
-      pw = (r % g.Wo) * g.stride - g.pad;
+      ph = (r / g.Wo) * g.stride - g.pad_h;
+      pw = (r % g.Wo) * g.stride - g.pad_w;
     }
   }
   const int64_t img = static_cast<int64_t>(pn) * g.H;
@@ -215,14 +218,16 @@ extern "C" int conv_int8_launch(const void* x, const void* w,
                                 const void* res, void* out, int64_t N,
                                 int64_t H, int64_t W, int64_t C, int64_t O,
                                 int64_t Ho, int64_t Wo, int64_t KS,
-                                int64_t stride, int64_t pad, int64_t relu,
+                                int64_t stride, int64_t pad_h,
+                                int64_t pad_w, int64_t relu,
                                 float s_main, float s_res, float s_out,
                                 void* stream) {
   const ConvGeom g{static_cast<int>(N),  static_cast<int>(H),
                    static_cast<int>(W),  static_cast<int>(C),
                    static_cast<int>(O),  static_cast<int>(Ho),
                    static_cast<int>(Wo), static_cast<int>(KS),
-                   static_cast<int>(stride), static_cast<int>(pad)};
+                   static_cast<int>(stride), static_cast<int>(pad_h),
+                   static_cast<int>(pad_w)};
   const int64_t M = N * Ho * Wo;
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
                   static_cast<unsigned>((O + kBN - 1) / kBN));

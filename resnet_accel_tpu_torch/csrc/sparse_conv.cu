@@ -18,7 +18,12 @@
 //         of x[n, ho*s + kh - pad, wo*s + kw - pad, cb*block_c + c] * w
 //   acc = acc + bias[o]; acc = relu(acc)         if given
 //   q   = clip(rint(float(acc) * factors[o]))    if factors is given
-// An output block with no stored block still writes its epilogue.
+// An output block with no stored block still writes its epilogue.  Any
+// block_c that divides C and any block_o: the B rows of a 64-wide slice
+// past block_o are zero in shared memory and the epilogue stores only the
+// output block's own channels below c_out; when block_c % 32 != 0 a
+// block's last K step is masked too, its bytes past block_c zero (kWhole
+// false: 16-byte loads for whole aligned chunks, byte loads for the rest).
 //
 // What bounds it on the H100: at the conv sweep's ResNet-18 shapes (batch
 // 64, 30 % of the blocks stored) a call is about 2 G int8 operations on
@@ -53,7 +58,9 @@ struct SconvGeom {
   int N, H, W, C, Ho, Wo, stride, pad, c_out, block_c, block_o, halves;
 };
 
-template <bool kRequant>
+// kWhole: block_c % 32 == 0 (so C too), so every K step lies inside one
+// block and its bytes are one aligned 16-byte load a thread.
+template <bool kRequant, bool kWhole>
 __global__ void __launch_bounds__(kThreads, 2)
 sparse_conv_kernel(const int8_t* __restrict__ x,
                    const int8_t* __restrict__ blocks,
@@ -92,7 +99,8 @@ sparse_conv_kernel(const int8_t* __restrict__ x,
   const bool b_live = bn < n_cnt;
 
   const int j0 = o_ptr[ob];
-  const int kps = g.block_c / kKB;        // K steps per block
+  const int kps = kWhole ? g.block_c / kKB          // K steps per block
+                         : (g.block_c + kKB - 1) / kKB;
   const int steps = (o_ptr[ob + 1] - j0) * kps;
 
   // fetch(t) -> ra, rb: step t's A and B bytes for this thread
@@ -103,6 +111,27 @@ sparse_conv_kernel(const int8_t* __restrict__ x,
     ra = make_int4(0, 0, 0, 0);
     rb = make_int4(0, 0, 0, 0);
     const int ih = ph + __ldg(kh_of + j), iw = pw + __ldg(kw_of + j);
+    if constexpr (!kWhole) {
+      const int n = min(16, g.block_c - k0);  // its bytes inside the block
+      if (n <= 0) return;
+      // a whole 16-byte chunk at a 16-byte aligned address: one load
+      const bool v16 = n == 16 && g.block_c % 16 == 0;
+      if (pn >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W) {
+        const int8_t* p = x + ((img + ih) * g.W + iw) * g.C +
+                          __ldg(cb_of + j) * g.block_c + k0;
+        ra = v16 && g.C % 16 == 0
+                 ? __ldg(reinterpret_cast<const int4*>(p))
+                 : load16_masked(p, n);
+      }
+      if (b_live) {
+        const int8_t* p =
+            blocks + (static_cast<int64_t>(j) * g.block_o + n_lo + bn) *
+                         g.block_c + k0;
+        rb = v16 ? __ldg(reinterpret_cast<const int4*>(p))
+                 : load16_masked(p, n);
+      }
+      return;
+    }
     if (pn >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
       ra = __ldg(reinterpret_cast<const int4*>(
           x + ((img + ih) * g.W + iw) * g.C +
@@ -206,8 +235,12 @@ extern "C" int sparse_conv_launch(
   const int64_t M = N * Ho * Wo;
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
                   static_cast<unsigned>(n_ob * halves));
-  auto* kernel = factors != nullptr ? sparse_conv_kernel<true>
-                                    : sparse_conv_kernel<false>;
+  const bool whole = block_c % 32 == 0;
+  auto* kernel = factors != nullptr
+                     ? (whole ? sparse_conv_kernel<true, true>
+                              : sparse_conv_kernel<true, false>)
+                     : (whole ? sparse_conv_kernel<false, true>
+                              : sparse_conv_kernel<false, false>);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(blocks),
       static_cast<const int*>(o_ptr), static_cast<const int*>(kh),

@@ -28,6 +28,10 @@
 // computes the conv outputs with one register multiply-add plus a shared
 // load amortised over eight channels.  A warp shares one group of eight
 // output channels, so weight reads are broadcasts.
+//
+// kAblate knocks stages out of the pooled tile for the timing probes of
+// probes.cu (their outputs are not the stem's): K1 and K10 instantiate
+// kFull, for which every ``if constexpr`` below keeps the code as it is.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,6 +46,12 @@ constexpr int kC = 3, kK = 7, kO = 64;
 constexpr int kTaps = kC * kK * kK;            // 147
 constexpr int kRow = kO + 4;                   // padded row: no bank clash
 constexpr int kThreads = 256;
+
+// Stages of the tile a probe keeps: everything; the staging only (no dots,
+// no pool: each output takes staged values); the dots, pool and stores
+// without the input's loads and quantize (the window holds a pattern);
+// the dots without the pool (each output requantizes one conv value).
+enum Ablate { kFull = 0, kStageOnly = 1, kNoLoads = 2, kNoPool = 3 };
 
 template <bool kPool>
 struct Tile {
@@ -58,8 +68,7 @@ struct Tile {
 
 // The staged input value: K1 quantizes fp32 (IEEE divide, rint, clip).
 __device__ __forceinline__ int load_input(const float* p, float scale) {
-  const float q = rintf(__fdiv_rn(__ldg(p), scale));
-  return static_cast<int>(fminf(fmaxf(q, -128.f), 127.f));
+  return quantize_i8(__ldg(p), scale);
 }
 __device__ __forceinline__ int load_input(const int8_t* p, float) {
   return __ldg(p);
@@ -68,7 +77,7 @@ __device__ __forceinline__ int load_input(const int8_t* p, float) {
 // One block's tile; grid (ceil(Wo / kTW), ceil(Ho / kTH), N), kThreads
 // threads, Tile<kPool>::kSmemBytes of dynamic shared memory.  Hc, Wc are
 // the conv's output size, Ho, Wo the output's (pooled or not).
-template <typename T, bool kPool>
+template <typename T, bool kPool, int kAblate = kFull>
 __device__ __forceinline__ void stem_tile(
     const T* __restrict__ x, const int8_t* __restrict__ w,
     const int32_t* __restrict__ bias, const float* __restrict__ factors,
@@ -95,12 +104,32 @@ __device__ __forceinline__ void stem_tile(
   for (int e = tid; e < kC * G::kIH * G::kIW; e += kThreads) {
     const int c = e / (G::kIH * G::kIW), rem = e - c * (G::kIH * G::kIW);
     const int ih = ih0 + rem / G::kIW, iw = iw0 + rem % G::kIW;
+    if constexpr (kAblate == kNoLoads) {
+      xs[e] = (e & 15) - 8;
+      continue;
+    }
     xs[e] = (ih >= 0 && ih < H && iw >= 0 && iw < W)
                 ? load_input(xn + (static_cast<int64_t>(c) * H + ih) * W + iw,
                              scale)
                 : 0;
   }
   __syncthreads();
+
+  if constexpr (kAblate == kStageOnly) {
+    for (int it = tid; it < G::kTH * G::kTW * 8; it += kThreads) {
+      const int pp = it / 8, og = it % 8;
+      const int oh = oh0 + pp / G::kTW, ow = ow0 + pp % G::kTW;
+      if (oh >= Ho || ow >= Wo) continue;
+      const int* v = xs + (8 * it) % (G::kXs - 8);
+      int2 packed;
+      packed.x = pack4(v[0], v[1], v[2], v[3] + ws[og]);
+      packed.y = pack4(v[4], v[5], v[6], v[7]);
+      *reinterpret_cast<int2*>(
+          out + ((static_cast<int64_t>(n) * Ho + oh) * Wo + ow) * kO +
+          og * 8) = packed;
+    }
+    return;
+  }
 
   // Conv outputs under the tile: warp = one group of 8 channels, lanes
   // walk the kCH x kCW positions.
@@ -153,7 +182,11 @@ __device__ __forceinline__ void stem_tile(
     const int oh = oh0 + pr, ow = ow0 + pc;
     if (oh >= Ho || ow >= Wo) continue;
     int m[8];
-    if (kPool) {
+    if constexpr (kAblate == kNoPool) {
+      const int* v = cs + ((2 * pr + 1) * G::kCW + 2 * pc + 1) * kRow + og * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m[j] = v[j];
+    } else if (kPool) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) m[j] = -1;
       for (int dr = 0; dr < 3; ++dr)

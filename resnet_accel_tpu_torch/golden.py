@@ -1,9 +1,12 @@
-"""The numpy golden of the block-sparse GEMM.
+"""Numpy pieces of the golden that the port needs.
 
-A copy of ``bsr_matmul_int8_wt`` (with its int32 wrap) from
-``resnet_accel_tpu/golden/gemm.py``, kept here so the port imports nothing
-of the JAX package.  The LM's calibration runs its projections through it.
-The tests hold the copy equal to its original.
+Copies of ``bsr_matmul_int8_wt`` (with its int32 wrap) from
+``resnet_accel_tpu/golden/gemm.py`` and of ``scale_to_q16`` and
+``q16_to_scale`` from ``resnet_accel_tpu/golden/ops.py``, kept here so the
+port imports nothing of the JAX package.  The LM's calibration runs its
+projections through the first; the other two give the Q16.16 register of
+``ops.epilogue.requantize_q16``.  The tests hold each copy equal to its
+original.
 """
 
 from __future__ import annotations
@@ -11,6 +14,18 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+
+def scale_to_q16(scale: float) -> int:
+    """A float scale as the reference's Q16.16 register value: ``int(scale
+    * 65536) & 0xFFFFFFFF``, truncating toward zero in double precision,
+    as the reference's host code converts it."""
+    return int(float(scale) * 65536.0) & 0xFFFFFFFF
+
+
+def q16_to_scale(q16: int) -> float:
+    """The scale a Q16.16 register applies: its 16 fraction bits only."""
+    return float(q16 & 0xFFFF) / 65536.0
 
 
 def _wrap_i32(x: np.ndarray) -> np.ndarray:

@@ -19,7 +19,11 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
 - ``ResNet18Int8Module`` is the forward (fp32 or int8 NCHW images -> fp32
   logits), one route per layer:
 
-      stem_conv_pool (K1), or stem_conv_pool_int8 (K10) for int8 images
+      stem_conv_pool (K1), or stem_conv_pool_int8 (K10) for int8 images,
+      or with ``stem_fused=False`` the space-to-depth stem:
+        quantize_s2d (K6; for int8 images space_to_depth_nchw)
+        -> conv2d_int8 (K2), 4x4/s1 padded ((2, 1), (2, 1)) on
+           stem_s2d_weights -> maxpool2d_int8 3x3/s2/p1
       -> per block:
         basic:      conv2d_int8 (K2) for c1, for the downsample and for
                     c2 with the residual join fused in
@@ -66,14 +70,19 @@ from resnet_accel_tpu_torch.ops import (
     im2col_nchw,
     matmul_int8,
     matmul_int8_plain,
+    maxpool2d_int8,
     pack_bsr,
     pack_weight,
     quantize_input,
+    quantize_s2d,
+    quantize_s2d_nchw,
     requant_factors,
+    space_to_depth_nchw,
     stem_conv_pool,
     stem_conv_pool_int8,
     stem_conv_pool_int8_plain,
     stem_conv_pool_plain,
+    stem_s2d_weights,
 )
 from resnet_accel_tpu_torch.quant import (bias_to_int32, pow2_scale,
                                           quantize_symmetric_per_channel)
@@ -693,9 +702,15 @@ class ResNet18Int8Module(nn.Module):
     Weights are uploaded once, here, in the layouts the kernels read: the
     trunk's conv weights channels-last (a 1x1 c3's is then [O, C]
     row-major, as K7 reads it), the fc weight as [512 or 2048, classes].
+
+    ``stem_fused`` (the JAX ``make_forward`` keyword) picks the ImageNet
+    stem's route: True runs the fused stem (K1, or K10 for int8 images);
+    False runs the space-to-depth stem (K6, then the 4x4 conv through K2,
+    then the max pool) whenever H and W are even, and the fused stem
+    otherwise.  Both give the same bits.  The CIFAR stem ignores it.
     """
 
-    def __init__(self, model: ResNet18Int8, device):
+    def __init__(self, model: ResNet18Int8, device, stem_fused: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.s_input = float(model.s_input)
@@ -712,6 +727,13 @@ class ResNet18Int8Module(nn.Module):
             stem_w = torch.from_numpy(np.ascontiguousarray(
                 stem.w2d.reshape(-1, stem.in_channels, 7, 7))).to(device)
         self.stem = Int8Conv(stem, stem_w, device)
+        self.stem_s2d_w = None
+        if not (self.small_input or stem_fused):
+            # [64, 4C, 4, 4]: the 7x7/s2/p3 weight regrouped for the
+            # space-to-depth input, packed once here
+            self.stem_s2d_w = pack_weight(
+                stem_s2d_weights(stem.w2d, stem.in_channels, 7),
+                4 * stem.in_channels, 4, device)
         self.blocks = nn.ModuleList()
         self.res_scales: List[Tuple[float, float, float]] = []
         for i, blk in enumerate(model.blocks):
@@ -732,23 +754,33 @@ class ResNet18Int8Module(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The kernels on CUDA tensors, the plain versions on CPU ones."""
         return self._forward(x, stem_conv_pool, stem_conv_pool_int8,
-                             conv2d_int8, matmul_int8, bsr_matmul_wt,
-                             expand_add_int8)
+                             quantize_s2d, conv2d_int8, matmul_int8,
+                             bsr_matmul_wt, expand_add_int8)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch versions of every kernel, on any device."""
         return self._forward(x, stem_conv_pool_plain,
-                             stem_conv_pool_int8_plain, conv2d_int8_plain,
-                             matmul_int8_plain, bsr_matmul_wt_plain,
-                             expand_add_int8_plain)
+                             stem_conv_pool_int8_plain, quantize_s2d_nchw,
+                             conv2d_int8_plain, matmul_int8_plain,
+                             bsr_matmul_wt_plain, expand_add_int8_plain)
 
-    def _forward(self, x, stem, stem_int8, conv, matmul, bsr, expand):
+    def _forward(self, x, stem, stem_int8, quant_s2d, conv, matmul, bsr,
+                 expand):
         int8_in = x.dtype == torch.int8
         st = self.stem
+        cl = torch.channels_last
         if self.small_input:
             a = x if int8_in else quantize_input(x, self.s_input)
             a = F.pad(a, (0, 0, 0, 0, 0, 1))
-            a = st(a.contiguous(memory_format=torch.channels_last), conv)
+            a = st(a.contiguous(memory_format=cl), conv)
+        elif self.stem_s2d_w is not None and x.shape[-2] % 2 == 0 \
+                and x.shape[-1] % 2 == 0:
+            a = (space_to_depth_nchw(x).contiguous(memory_format=cl)
+                 if int8_in else quant_s2d(x, self.s_input))
+            a = conv(a, self.stem_s2d_w, st.bias, st.factors, stride=1,
+                     padding=((2, 1), (2, 1)), relu=st.relu)
+            a = maxpool2d_int8(a, 3, 2, padding=1).contiguous(
+                memory_format=cl)
         elif int8_in:
             a = stem_int8(x, st.weight, st.bias, st.factors)
         else:

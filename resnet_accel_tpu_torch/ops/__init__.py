@@ -1,6 +1,6 @@
-"""The compute path: the eight kernel wrappers with their plain versions,
-the int8 epilogues and pools they share, and the gather-compact BSR
-product of the LM's projections."""
+"""The compute path: the kernel wrappers (K1-K8 and K10) with their plain
+versions, the int8 epilogues, pools and layout ops they share, and the
+gather-compact BSR product of the LM's projections."""
 
 from resnet_accel_tpu_torch.ops.bsr_matmul import (
     GatherBSR,
@@ -16,13 +16,17 @@ from resnet_accel_tpu_torch.ops.conv import (
     conv2d_int8_plain,
     im2col_nchw,
     pack_weight,
+    space_to_depth_nchw,
+    stem_s2d_weights,
 )
 from resnet_accel_tpu_torch.ops.epilogue import (
     add_residual,
     exact_inv_out_scale,
+    exact_pow2_inv,
     quantize_input,
     requant_factors,
     requantize,
+    requantize_q16,
 )
 from resnet_accel_tpu_torch.ops.expand_fused import (
     expand_add_int8,
@@ -49,6 +53,12 @@ from resnet_accel_tpu_torch.ops.sparse_conv import (
     sparse_conv2d_int8,
     sparse_conv2d_int8_plain,
 )
+from resnet_accel_tpu_torch.ops.stem_pack import (
+    quantize_s2d,
+    quantize_s2d_nchw,
+    quantize_s2d_wh,
+    transpose_taps,
+)
 from resnet_accel_tpu_torch.ops.stem_fused import (
     stem_conv_pool,
     stem_conv_pool_plain,
@@ -65,6 +75,7 @@ __all__ = [
     "conv2d_int8",
     "conv2d_int8_plain",
     "exact_inv_out_scale",
+    "exact_pow2_inv",
     "expand_add_int8",
     "expand_add_int8_plain",
     "flash_attention",
@@ -78,12 +89,19 @@ __all__ = [
     "pack_gather_bsr",
     "pack_weight",
     "quantize_input",
+    "quantize_s2d",
+    "quantize_s2d_nchw",
+    "quantize_s2d_wh",
     "requant_factors",
     "requantize",
+    "requantize_q16",
+    "space_to_depth_nchw",
     "sparse_conv2d_int8",
     "sparse_conv2d_int8_plain",
     "stem_conv_pool",
     "stem_conv_pool_int8",
     "stem_conv_pool_int8_plain",
     "stem_conv_pool_plain",
+    "stem_s2d_weights",
+    "transpose_taps",
 ]

@@ -15,8 +15,8 @@ with no stored block still yields its output columns (``bias`` through the
 epilogue), as the TPU kernel's zero filler block does.
 
 ``bsr_matmul_wt_xla`` over a :class:`GatherBSR` is the other route, the
-one the LM's projections take: the counterpart of the JAX package's XLA
-composition of the same name, for block shapes below K4's gate.
+one the LM's projections take, as the JAX package's LM does: the
+counterpart of the JAX package's XLA composition of the same name.
 """
 
 from __future__ import annotations
@@ -126,10 +126,7 @@ def bsr_matmul_wt(
     """Zero-skip C[M, n_out] = A[M, K] @ W^T for int8 ``a`` (K is the
     weight's ``k_dim`` or ``k_padded``), with optional int32 ``bias``
     [n_out], ReLU and float32 requant ``factors`` [n_out].  Returns int8
-    when ``factors`` is given, else int32.
-
-    The kernel takes ``block_h % 16 == 0`` and ``block_w % 32 == 0``; on a
-    CUDA tensor any other block shape raises."""
+    when ``factors`` is given, else int32.  Any block shape."""
     _check_k(a, packed)
     if a.device.type == "cpu":
         return bsr_matmul_wt_plain(a, packed, bias=bias, factors=factors,
@@ -137,9 +134,6 @@ def bsr_matmul_wt(
     if a.device.type != "cuda":
         raise ValueError(f"bsr_matmul_wt: unsupported device {a.device}")
     bh, bw = packed.block_h, packed.block_w
-    if bh % 16 or bw % 32:
-        raise ValueError(f"bsr_matmul kernel needs block_h % 16 == 0 and "
-                         f"block_w % 32 == 0, got {bh} x {bw}")
     M, K = a.shape
     N = packed.n_out
     nbr = packed.n_padded // bh
@@ -228,8 +222,7 @@ def bsr_matmul_wt_xla(a: torch.Tensor, g: GatherBSR) -> torch.Tensor:
     the K slab of A that each padded block needs, one batched product over
     the block rows, slice to ``n_out``.  Work scales with the padded stored
     blocks, so the zero-block skip holds here as well.  This is the route
-    for block shapes below K4's ``block_h % 16``, ``block_w % 32`` gate
-    (the LM's 8 x 8 blocks), and it is not K4's plain version: that one,
+    of the LM's 8 x 8 blocks, and it is not K4's plain version: that one,
     :func:`bsr_matmul_wt_plain`, stays K4's reference.
 
     The product runs in float64, never TF32: every term is an integer of

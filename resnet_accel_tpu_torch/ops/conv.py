@@ -2,7 +2,8 @@
 join: kernel K2 and its plain version.
 
 Counterpart of ``resnet_accel_tpu/ops/conv.py`` (``conv2d_int8``,
-``im2col_nchw``) and of the residual-join convs of
+``im2col_nchw``, ``space_to_depth_nchw``, ``stem_s2d_weights``) and of the
+residual-join convs of
 ``resnet_accel_tpu/ops/conv_bm.py``.  ``conv2d_int8`` launches the CUDA
 kernel ``csrc/conv_int8.cu`` for CUDA tensors and runs
 :func:`conv2d_int8_plain` for CPU tensors.  Both compute, per output
@@ -22,7 +23,7 @@ back channels-last, ready for the next conv.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,17 +34,29 @@ from resnet_accel_tpu_torch.ops.epilogue import add_residual, requantize
 from resnet_accel_tpu_torch.ops.matmul_int8 import matmul_int8_plain
 
 
+#: A conv's zero padding: one int for every side, or JAX's per-side
+#: ``((top, bottom), (left, right))``.
+Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
+
+
+def _pads(padding: Padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (t, b), (l, r) = padding
+    return (int(t), int(b)), (int(l), int(r))
+
+
 def im2col_nchw(
-    x: torch.Tensor, kernel: int, stride: int, padding: int
+    x: torch.Tensor, kernel: int, stride: int, padding: Padding
 ) -> torch.Tensor:
     """[N, C, H, W] -> [N, H_out*W_out, C*K*K] patches, row order
     (c, kh, kw) as in the golden ``im2col_int8``; zero padding."""
     N, C, H, W = x.shape
     K = kernel
-    H_out = (H + 2 * padding - K) // stride + 1
-    W_out = (W + 2 * padding - K) // stride + 1
-    if padding > 0:
-        x = F.pad(x, (padding,) * 4)
+    H_out, W_out = _out_hw(H, W, K, stride, padding)
+    (t, b), (l, r) = _pads(padding)
+    if t or b or l or r:
+        x = F.pad(x, (l, r, t, b))
     p = torch.stack([x[:, :, kh:kh + stride * H_out:stride,
                        kw:kw + stride * W_out:stride]
                      for kh in range(K) for kw in range(K)])
@@ -62,9 +75,42 @@ def pack_weight(weight2d: np.ndarray, in_channels: int, kernel: int,
 
 
 def _out_hw(H: int, W: int, kernel: int, stride: int,
-            padding: int) -> Tuple[int, int]:
-    return ((H + 2 * padding - kernel) // stride + 1,
-            (W + 2 * padding - kernel) // stride + 1)
+            padding: Padding) -> Tuple[int, int]:
+    (t, b), (l, r) = _pads(padding)
+    return ((H + t + b - kernel) // stride + 1,
+            (W + l + r - kernel) // stride + 1)
+
+
+def space_to_depth_nchw(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """[N, C, H, W] -> [N, C*block^2, H/block, W/block], channel order
+    (c, row-parity, col-parity), the order :func:`stem_s2d_weights`
+    pairs with (``F.pixel_unshuffle``'s)."""
+    N, C, H, W = x.shape
+    x = x.reshape(N, C, H // block, block, W // block, block)
+    x = x.permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(N, C * block * block, H // block, W // block)
+
+
+def stem_s2d_weights(weight2d: np.ndarray, in_c: int,
+                     kernel: int) -> np.ndarray:
+    """Space-to-depth form of a (kernel, stride 2, pad kernel // 2) conv
+    weight, exact in int8: [O, C*k*k] -> [O, 4C*((k+1)/2)^2].
+
+    The k x k taps are zero-padded at the front to (k+1) x (k+1) and
+    regrouped by (row, col) parity into a ((k+1)/2)^2-tap conv over
+    :func:`space_to_depth_nchw` of the input, with padding
+    ``((p+1)//2, (p-1)//2)`` per side where p = kernel // 2: for the 7x7
+    stem a 4x4 stride-1 conv padded ((2, 1), (2, 1)).  Every product of
+    the original conv is kept and the added taps meet structural zeros,
+    so the int32 sums are identical."""
+    if kernel % 2 == 0:
+        raise ValueError("stem_s2d_weights expects an odd kernel")
+    O = weight2d.shape[0]
+    w4 = np.asarray(weight2d).reshape(O, in_c, kernel, kernel)
+    w8 = np.pad(w4, ((0, 0), (0, 0), (1, 0), (1, 0)))
+    k2 = (kernel + 1) // 2
+    w = w8.reshape(O, in_c, k2, 2, k2, 2).transpose(0, 1, 3, 5, 2, 4)
+    return np.ascontiguousarray(w.reshape(O, -1))
 
 
 def conv2d_int8_plain(
@@ -74,7 +120,7 @@ def conv2d_int8_plain(
     factors: torch.Tensor,
     *,
     stride: int = 1,
-    padding: int = 0,
+    padding: Padding = 0,
     relu: bool = False,
     residual: Optional[torch.Tensor] = None,
     res_scales: Optional[Tuple[float, float, float]] = None,
@@ -101,16 +147,17 @@ def conv2d_int8(
     factors: torch.Tensor,
     *,
     stride: int = 1,
-    padding: int = 0,
+    padding: Padding = 0,
     relu: bool = False,
     residual: Optional[torch.Tensor] = None,
     res_scales: Optional[Tuple[float, float, float]] = None,
 ) -> torch.Tensor:
     """Fused int8 conv: ``x`` [N, C, H, W] int8, ``weight`` [O, C, K, K]
     int8, ``bias`` [O] int32, ``factors`` [O] float32 -> [N, O, Ho, Wo]
-    int8.  With ``residual`` [N, O, Ho, Wo] int8 and ``res_scales`` =
-    (s_main, s_res, s_out) the output is the basic block's residual join
-    (with its ReLU) instead of the requantized conv."""
+    int8; ``padding`` an int or ``((top, bottom), (left, right))``.
+    With ``residual`` [N, O, Ho, Wo] int8 and ``res_scales`` = (s_main,
+    s_res, s_out) the output is the basic block's residual join (with its
+    ReLU) instead of the requantized conv."""
     if (residual is None) != (res_scales is None):
         raise ValueError("residual and res_scales go together")
     if x.device.type == "cpu":
@@ -125,6 +172,7 @@ def conv2d_int8(
         raise ValueError(f"conv2d_int8 kernel needs C and O divisible by "
                          f"4, got C={C} O={O}")
     H_out, W_out = _out_hw(H, W, K, stride, padding)
+    pads = _pads(padding)
     dev = x.device
     cl = torch.channels_last
     _kernels.check(x, "x", torch.int8, (N, C, H, W), dev, cl)
@@ -142,6 +190,6 @@ def conv2d_int8(
         "conv_int8", dev, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         factors.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
-        N, H, W, C, O, H_out, W_out, K, stride, padding, int(relu),
-        s_main, s_res, s_out)
+        N, H, W, C, O, H_out, W_out, K, stride, pads[0][0], pads[1][0],
+        int(relu), s_main, s_res, s_out)
     return out

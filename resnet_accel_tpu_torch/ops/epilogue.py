@@ -49,6 +49,43 @@ def requantize(
     return torch.round(scaled).clamp(-128, 127).to(torch.int8)
 
 
+def requantize_q16(acc: torch.Tensor, scale_q16: int,
+                   relu: bool = False) -> torch.Tensor:
+    """The reference's Q16.16 fixed-point requant (its output
+    accumulator's datapath, golden ``requantize_q16``): int32 ``acc`` ->
+    ``clip((relu(acc) * (scale_q16 & 0xFFFF)) >> 16, -128, 127)`` int8,
+    the product in int64 and the shift an arithmetic one (a floor).  Only
+    the register's 16 fraction bits scale; its integer bits are ignored,
+    as the hardware ignores them."""
+    acc = acc.to(torch.int32).to(torch.int64)
+    if relu:
+        acc = acc.clamp_min(0)
+    scaled = (acc * (int(scale_q16) & 0xFFFF)) >> 16
+    return scaled.clamp(-128, 127).to(torch.int8)
+
+
+def exact_pow2_inv(scale: float) -> Optional[float]:
+    """The float32 reciprocal of a power-of-two ``scale``, else None.
+
+    When ``scale`` is 2^k, ``x / scale`` and ``x * (1 / scale)`` are the
+    same float32 operation for every x (the exact quotient and product
+    coincide), so a kernel may multiply instead of divide, bit for bit.
+    Unlike the JAX function, this also returns None when the reciprocal
+    is not a normal float32 (``scale`` >= 2^127): a device that flushes
+    subnormals to zero would break the identity there.  Calibration never
+    reaches such a scale (``pow2_scale`` of |x| / 127)."""
+    s32 = np.float32(scale)
+    if not np.isfinite(s32) or s32 <= 0:
+        return None
+    m, _ = np.frexp(s32)
+    if m != 0.5:
+        return None
+    inv = np.float32(1.0) / s32
+    if not np.isfinite(inv) or inv < np.finfo(np.float32).tiny:
+        return None
+    return float(inv)
+
+
 def requant_factors(
     act_scale: float, wgt_scales: np.ndarray, out_scale: float
 ) -> np.ndarray:

@@ -92,7 +92,7 @@ def sparse_conv2d_int8(
     """Zero-skip conv: ``x`` [N, C, H, W] int8 (channels-last on a card),
     ``packed`` from ``device_pack``, optional ``bias`` [c_out] int32 and
     ``factors`` [c_out] float32 -> [N, c_out, Ho, Wo], int8 with
-    ``factors`` and int32 without."""
+    ``factors`` and int32 without.  Any block shape the packer takes."""
     if x.device.type == "cpu":
         return sparse_conv2d_int8_plain(x, packed, bias=bias, factors=factors,
                                         relu=relu, stride=stride)
@@ -100,10 +100,6 @@ def sparse_conv2d_int8(
         raise ValueError(f"sparse_conv2d_int8: unsupported device {x.device}")
     Ho, Wo = _out_hw(x, packed, stride)
     bc, bo = packed.block_c, packed.block_o
-    if bc % 32 or bo % 8:
-        raise ValueError(f"sparse_conv2d_int8 kernel needs block_c % 32 == 0 "
-                         f"and block_o % 8 == 0, got block_c={bc} "
-                         f"block_o={bo}")
     N, C, H, W = x.shape
     O, nnz, dev = packed.c_out, packed.nnz_source, x.device
     _kernels.check(x, "x", torch.int8, (N, C, H, W), dev, torch.channels_last)

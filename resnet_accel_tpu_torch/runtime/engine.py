@@ -134,15 +134,19 @@ class QuantizingLoader:
 class InferenceEngine:
     """Upload a quantized ``ResNet18Int8`` (any depth of the family) or
     ``MNISTCNNInt8`` to ``device`` once and run batched int8 inference on
-    it many times."""
+    it many times.  ``stem_fused`` goes to the ResNet module: False serves
+    the ImageNet stem through the space-to-depth route (K6, K2) instead of
+    the fused stem (see ``ResNet18Int8Module``)."""
 
     def __init__(self, model: Union[ResNet18Int8, MNISTCNNInt8],
-                 device="cuda"):
+                 device="cuda", stem_fused: bool = True):
         self.device = resolve_device(device)
         self.model = model
-        module = (MNISTCNNInt8Module if isinstance(model, MNISTCNNInt8)
-                  else ResNet18Int8Module)
-        self.module = module(model, self.device).eval()
+        if isinstance(model, MNISTCNNInt8):
+            self.module = MNISTCNNInt8Module(model, self.device).eval()
+        else:
+            self.module = ResNet18Int8Module(
+                model, self.device, stem_fused=stem_fused).eval()
 
     def get_model_sparsity(self) -> Dict[str, float]:
         """Block sparsity of each layer that carries BSR weights."""

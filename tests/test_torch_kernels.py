@@ -182,13 +182,37 @@ def test_bsr_matmul_empty_block_row(cuda):
     assert torch.equal(got[:, 128:256], empty.expand(300, -1))
 
 
-def test_bsr_matmul_refuses_block_shape(cuda):
+# Any block shape: the reference's 14 x 14, 8 x 8, 16 x 24, and widths of
+# 16 and 48 (whole 16-byte chunks, with K aligned or not), with M, N and K
+# ragged against the blocks and N not a multiple of block_h, so the masked
+# K tails and the slice that ends inside a block row are met.
+@pytest.mark.parametrize("M,K,N,bh,bw", [
+    (300, 9216, 128, 14, 14), (77, 203, 131, 14, 14), (130, 100, 37, 8, 8),
+    (129, 200, 70, 16, 24), (64, 192, 40, 8, 16), (70, 200, 50, 16, 48)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_bsr_matmul_block_shapes(cuda, M, K, N, bh, bw, requant):
     from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
-    packed = ops.pack_bsr(build_bsr_int8_direct(
-        np.ones((28, 28), np.int8), 14), cuda)
-    a = torch.ones((3, 28), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="block_h % 16"):
-        ops.bsr_matmul_wt(a, packed)
+    rng = np.random.default_rng(M + K + bw)
+    W = _i8(rng, (N, K))
+    nbr, nbc = -(-N // bh), -(-K // bw)
+    W[np.repeat(np.repeat(rng.random((nbr, nbc)) < 0.6, bh, 0), bw,
+                1)[:N, :K]] = 0
+    packed = ops.pack_bsr(build_bsr_int8_direct(W, bh, bw), cuda)
+    a = _t(_i8(rng, (M, K)), cuda)
+    bias = _t(rng.integers(-3000, 3000, N).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, N) * 0.011 / np.sqrt(K)).astype(
+        np.float32), cuda)
+    kw = dict(bias=bias, factors=f if requant else None, relu=requant)
+    before = _kernels.launch_counts()["bsr_matmul"]
+    got = ops.bsr_matmul_wt(a, packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["bsr_matmul"] == before + 1
+    want = ops.bsr_matmul_wt_plain(a, packed, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if not requant:     # the dense product of the same weights
+        dense = a.cpu().to(torch.int64) @ torch.from_numpy(W).to(
+            torch.int64).t() + bias.cpu()
+        assert torch.equal(got.cpu().to(torch.int64), dense)
 
 
 # The four c3 shapes of ResNet-50 at batch 2, a single pixel (M = 1), and
@@ -374,14 +398,29 @@ def test_sparse_conv_empty_output_block(cuda):
     assert zeros.dtype == torch.int32 and not zeros.any()
 
 
-def test_sparse_conv_refuses_block_shape(cuda):
-    from resnet_accel_tpu_torch.sparse import device_pack, pack_conv_bsr
-    packed = device_pack(pack_conv_bsr(np.ones((16, 16, 3, 3), np.int8),
-                                       padding=1), cuda)
-    x = torch.zeros((1, 16, 4, 4), dtype=torch.int8, device=cuda).contiguous(
-        memory_format=torch.channels_last)
-    with pytest.raises(ValueError, match="block_c % 32"):
-        ops.sparse_conv2d_int8(x, packed)
+# Blocks off the 32-channel step: (block_c, block_o) = (16, 14), the
+# conv sweep's l3.c1 and l4.ds shapes at batch 2 (O not a multiple of
+# 14, so the packer's padded channels must never be stored), and (8, 4).
+@pytest.mark.parametrize("N,C,O,H,k,stride,block_c,block_o", [
+    (2, 128, 256, 28, 3, 2, 16, 14), (2, 256, 512, 14, 1, 2, 16, 14),
+    (2, 24, 28, 9, 3, 1, 8, 4), (3, 16, 12, 7, 3, 2, 8, 4)])
+def test_sparse_conv_block_shapes(cuda, N, C, O, H, k, stride, block_c,
+                                  block_o):
+    w, x, packed, bias, f = _sconv_case(cuda, N, C, O, H, k, stride,
+                                        block_o, block_c, 0.6, C + O + H)
+    kw = dict(stride=stride, bias=bias, factors=f, relu=True)
+    before = _kernels.launch_counts()["sparse_conv"]
+    got = ops.sparse_conv2d_int8(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["sparse_conv"] == before + 1
+    assert torch.equal(got, ops.sparse_conv2d_int8_plain(x, packed, **kw))
+    wd = ops.pack_weight(w.reshape(O, -1), C, k, cuda)
+    assert torch.equal(got, ops.conv2d_int8(
+        x, wd, bias, f, stride=stride, padding=k // 2, relu=True))
+    raw = ops.sparse_conv2d_int8(x, packed, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, ops.sparse_conv2d_int8_plain(x, packed,
+                                                          stride=stride))
 
 
 # K10 at ResNet-18's stem (224) and at a size whose pooled output (58) and
@@ -407,3 +446,115 @@ def test_stem_int8(cuda, N, H, W, pool):
                                                            pool))
     if pool:
         assert torch.equal(got, ops.stem_conv_pool(x, w, bias, f, scale))
+
+
+# K6 at the stem's shape, at a ragged one, and at C = 4; odd batches.
+@pytest.mark.parametrize("N,C,H,W", [
+    (1, 3, 224, 224), (3, 3, 224, 224), (128, 3, 224, 224), (1, 3, 34, 50),
+    (3, 3, 34, 50), (128, 3, 34, 50), (1, 4, 224, 224), (3, 4, 34, 50),
+    (128, 4, 34, 50)])
+def test_stem_pack(cuda, N, C, H, W):
+    rng = np.random.default_rng(N + H + C)
+    x = _t(rng.normal(0, 1, (N, C, H, W)).astype(np.float32), cuda)
+    scale = float(x.abs().max().item() / 127.0)
+    before = _kernels.launch_counts()["stem_pack"]
+    got = ops.quantize_s2d(x, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["stem_pack"] == before + 1
+    assert got.shape == (N, 4 * C, H // 2, W // 2)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ops.quantize_s2d_nchw(x, scale))
+
+
+def test_stem_pack_ties_and_saturation(cuda):
+    """Exact rounding ties (k + 0.5) * s go to the even neighbour, and
+    values past the int8 range saturate: a reciprocal multiply or roundf
+    would move some of them."""
+    s = 0.0173
+    k = np.arange(-140, 140, dtype=np.float32)
+    vals = np.concatenate([(k + 0.5) * np.float32(s), k * np.float32(s),
+                           np.float32([1e6, -1e6, 0.0, -0.0])])
+    x = np.resize(vals, (3, 3, 20, 12)).astype(np.float32)
+    got = ops.quantize_s2d(_t(x, cuda), s)
+    torch.cuda.synchronize()
+    want = np.clip(np.rint(x / np.float32(s)), -128, 127).astype(np.int8)
+    want = want.reshape(3, 3, 10, 2, 6, 2).transpose(0, 1, 3, 5, 2, 4)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  want.reshape(3, 12, 10, 6))
+
+
+def test_stem_pack_refuses_odd(cuda):
+    with pytest.raises(ValueError, match="even"):
+        ops.quantize_s2d(torch.zeros((1, 3, 5, 4), device=cuda), 0.1)
+
+
+# K2 with per-side padding: the space-to-depth stem's 4x4 conv at C = 12
+# (the 112 x 112 output of the 224 image, and a ragged one), and a 3x3 with
+# every side different.
+@pytest.mark.parametrize("N,C,O,H,W,k,pad", [
+    (2, 12, 64, 112, 112, 4, ((2, 1), (2, 1))),
+    (3, 12, 64, 17, 25, 4, ((2, 1), (2, 1))),
+    (2, 8, 12, 9, 11, 3, ((0, 2), (1, 0)))])
+def test_conv_per_side_padding(cuda, N, C, O, H, W, k, pad):
+    rng = np.random.default_rng(C + H + W)
+    x = _t(_i8(rng, (N, C, H, W)), cuda).contiguous(
+        memory_format=torch.channels_last)
+    w = ops.pack_weight(_i8(rng, (O, C * k * k)), C, k, cuda)
+    bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(C * k * k)).astype(
+        np.float32), cuda)
+    kw = dict(padding=pad, relu=True)
+    got = ops.conv2d_int8(x, w, bias, f, **kw)
+    torch.cuda.synchronize()
+    want = ops.conv2d_int8_plain(x, w, bias, f, **kw)
+    (t, b), (l, r) = pad
+    assert want.shape[2:] == (H + t + b - k + 1, W + l + r - k + 1)
+    assert torch.equal(got, want)
+
+
+def test_s2d_stem_equals_k1(cuda):
+    """K6, then K2's 4x4 conv on the regrouped weights, then the pool: the
+    bits of K1 on the same images."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.normal(0, 1, (3, 3, 64, 48)).astype(np.float32), cuda)
+    w7 = _i8(rng, (64, 3 * 49))
+    bias = _t(rng.integers(-5000, 5000, 64).astype(np.int32), cuda)
+    f = _t(rng.uniform(0.001, 0.01, 64).astype(np.float32), cuda)
+    scale = float(x.abs().max().item() / 127.0)
+    w4 = ops.pack_weight(ops.stem_s2d_weights(w7, 3, 7), 12, 4, cuda)
+    a = ops.conv2d_int8(ops.quantize_s2d(x, scale), w4, bias, f,
+                        padding=((2, 1), (2, 1)), relu=True)
+    got = ops.maxpool2d_int8(a, 3, 2, padding=1)
+    torch.cuda.synchronize()
+    k1 = ops.stem_conv_pool(x, _t(w7.reshape(64, 3, 7, 7), cuda), bias, f,
+                            scale)
+    assert torch.equal(got, k1)
+
+
+def test_probes(cuda):
+    """The probe kernels against their plain versions; K1's tile with no
+    stage knocked out is K1."""
+    from resnet_accel_tpu_torch import probes
+    rng = np.random.default_rng(3)
+    for M, K in ((64, 192), (128, 576)):
+        a = _t(rng.integers(-4, 4, (M, K)).astype(np.int8), cuda)
+        b = _t(rng.integers(-4, 4, (64, K)).astype(np.int8), cuda)
+        got = probes.mma_s8(a, b, 5, 3)
+        assert torch.equal(got, probes.mma_s8_plain(a, b, 5, 3))
+    x = _t(rng.integers(-100, 100, (512, 4)).astype(np.int32), cuda)
+    for kind in probes.CHAIN_KINDS:
+        assert torch.equal(probes.chain(x, 17, kind),
+                           probes.chain_plain(x, 17, kind))
+    xs = _t(rng.normal(0, 1, (2, 3, 64, 64)).astype(np.float32), cuda)
+    w = _t(_i8(rng, (64, 3, 7, 7)), cuda)
+    bias = _t(rng.integers(-5000, 5000, 64).astype(np.int32), cuda)
+    f = _t(rng.uniform(0.001, 0.01, 64).astype(np.float32), cuda)
+    before = _kernels.launch_counts()
+    for mode in probes.STEM_MODES:
+        out = probes.stem_ablation(xs, w, bias, f, 0.02, mode)
+        if mode == "full":
+            assert torch.equal(out, ops.stem_conv_pool(xs, w, bias, f, 0.02))
+    torch.cuda.synchronize()
+    before["stem_fused"] += 1
+    assert _kernels.launch_counts() == before
+

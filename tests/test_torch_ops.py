@@ -278,6 +278,8 @@ class TestDispatch:
         with pytest.raises(ValueError, match="unsupported device"):
             ops.stem_conv_pool_int8(torch.zeros(1, 3, 8, 8, dtype=torch.int8,
                                                 device="meta"), w, v, v)
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops.quantize_s2d(torch.zeros(1, 3, 8, 8, device="meta"), 0.1)
 
     def test_plain_path_counts_no_launch(self):
         _kernels.reset_launch_counts()
@@ -299,10 +301,11 @@ class TestDispatch:
                                cpk)
         ops.stem_conv_pool_int8(torch.zeros((1, 3, 16, 16), dtype=torch.int8),
                                 _t(w.reshape(64, 3, 7, 7)), _t(bias), _t(f))
+        ops.quantize_s2d(_t(x), scale)
         assert _kernels.launch_counts() == {
             "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0,
             "bsr_matmul": 0, "expand_add": 0, "flash_attention": 0,
-            "sparse_conv": 0, "stem_int8": 0}
+            "sparse_conv": 0, "stem_int8": 0, "stem_pack": 0}
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))

@@ -88,6 +88,14 @@ def _cases():
         w=rng.integers(-128, 128, (100, 128, 3, 3)).astype(np.int8),
         x=rng.integers(-128, 128, (1, 128, 6, 6)).astype(np.int8),
         bias=None, factors=None, relu=False, stride=1, pack=dict(padding=1))
+    # Blocks off the kernel's 32-channel step: (block_c, block_o) = (16,
+    # 14), with O = 30 padded to 42 by the packer, and (8, 4).
+    for s in (1, 2):
+        out[f"blocks16x14_s{s}"] = _case_requant(
+            np.random.default_rng(10 + s), 30, 32, 3, 14, 16, 0.5,
+            (2, 32, 8 + s, 8 + s), s)
+    out["blocks8x4_s2"] = _case_requant(np.random.default_rng(13), 12, 16,
+                                        3, 4, 8, 0.5, (1, 16, 7, 7), 2)
     return out
 
 
