@@ -17,13 +17,16 @@ result line) without them.  Phases, each fatal on failure:
    serving a batch of 128 images of 224 x 224 -- the stem (K1), every conv
    of the trunk including the residual joins (K2) and the fc layer (K3).
    Prints the median kernel and plain times (CUDA events; device time, the
-   host's launch time left out), each call's bound and, for K3, the time
-   of ``torch._int_mm`` plus the bias.
+   host's launch time left out), each call's bound and, for K3, its path
+   (variant, N tile, cluster split) and the time of ``torch._int_mm``
+   plus the bias.
 3. Serve three batches of 128 through ``InferenceEngine(device="cuda")``
    with every launch count reset to 0 just before; K1-K3 must each have
-   launched.  The logits must be finite, [128, 1000], bit-identical to the
-   plain path on the card, and for two images bit-identical to the plain
-   path on the CPU.  Prints img/s (CUDA events, median forward).
+   launched, K3 on its TMA variant only (the variant counts are printed
+   beside the launch counts on every served path).  The logits must be
+   finite, [128, 1000], bit-identical to the plain path on the card, and
+   for two images bit-identical to the plain path on the CPU.  Prints
+   img/s (CUDA events, median forward).
 4. Run ``python -m resnet_accel_tpu_torch infer --device cuda`` once for
    ``--model resnet18`` and once for ``--model resnet --depth 50``.
 5. ResNet-50 at full width and depth (seed 0, the same geometry and
@@ -38,20 +41,25 @@ result line) without them.  Phases, each fatal on failure:
 7. Sparse ResNet-18: the ResNet-18 weights block-pruned at 0.7 with
    128 x 128 blocks, quantized, BSR attached at 128 (``min_sparsity``
    0.25).  Walks one batch of 128 through the layers and holds K4 against
-   its plain version at each sparse conv, bit for bit; prints the im2col,
-   K4, plain, ``torch._int_mm`` on the densified weight and the dense K2
-   times of the same pruned conv.
+   its plain version at each sparse conv, bit for bit; prints K4's path,
+   the im2col, K4, plain, ``torch._int_mm`` on the densified weight and
+   the dense K2 times of the same pruned conv.  K4's bound counts only
+   the columns of A under block columns that some block row stores.
 8. Serve three batches of 128 through the engine on the sparse model,
-   counts reset just before: K1, K2, K3 and K4 must each launch.  The
-   logits must be bit-identical to the plain path on the card, for two
-   images to the plain path on the CPU, and to the dense forward of the
-   same pruned model.  Prints both forwards' img/s (CUDA events, median),
-   in the order dense, sparse, sparse, dense.
+   counts reset just before: K1, K2, K3 and K4 must each launch, K4 and
+   K3 on their Hopper (TMA) variants only.  The logits must be
+   bit-identical to the plain path on the card, for two images to the
+   plain path on the CPU, and to the dense forward of the same pruned
+   model.  Prints both forwards' img/s (CUDA events, median), in the order
+   dense, sparse, sparse, dense.
 9. The MNIST CNN from seeded arrays written in the reference's int8
    export layout, fc1 block-pruned at 0.9, batch 128: K4 against its plain
-   version at fc1; the engine's logits (counts reset just before; K2, K3
-   and K4 must launch) bit-identical to the plain path on the card and on
-   the CPU.
+   version at fc1 (one block row of 9 blocks: a split-K cluster of two);
+   K3 at the dense fc1 (with requant and ReLU) and at fc2 (N = 10), each
+   beside ``_int_mm`` plus the bias where cuBLAS takes the shape; the
+   engine's logits (counts reset just before; K2, K3 and K4 must launch,
+   on their Hopper variants) bit-identical to the plain path on the card
+   and on the CPU.
 10. ``python -m resnet_accel_tpu_torch bench --sizes 2048,4096
    --sparsities 0.0,0.5,0.7,0.9 --batch 512 --device cuda`` and
    ``infer --model mnist --weights <dir> --device cuda``, as subprocesses.
@@ -103,13 +111,15 @@ result line) without them.  Phases, each fatal on failure:
    images to the plain path on the CPU; a batch of 100 and an int8 batch
    on the route must equal the default route.  Prints both routes'
    img/s, in the order default, s2d, s2d, default.
-21. K4 at 14 x 14 blocks: the MNIST CNN's fc1 (against its plain version;
+21. K4 at 14 x 14 blocks, on its ``mma_sync`` path (the served runs
+   must launch no other): the MNIST CNN's fc1 (against its plain version;
    the engine's logits against the plain path on the card and the CPU,
    counts reset just before), the GEMM M = 512, N = K = 2048 at 0.7 (with
    the 128 x 128 case beside it), and the seed-0 ResNet-18 pruned 0.7 at
-   14 x 14 at batch 8 (K4 against plain at each sparse conv, with the
-   128 x 128 model's times; the engine's logits against the plain path
-   and the dense forward of the pruned model).
+   14 x 14 at batch 8 (K4 against plain at each sparse conv, with its
+   bound and ``_int_mm`` on the densified weight, and the 128 x 128
+   model's; the engine's logits against the plain path and the dense
+   forward of the pruned model).
 22. K8 at block_c 16, block_o 14 on the sweep's l3.c1 and l4.ds, against
    its plain version and the dense K2, bit for bit.
 23. The probes (``resnet_accel_tpu_torch/probes.py``): ``mma_s8_rate`` at
@@ -121,8 +131,7 @@ the served paths; ms the kernel's time summed over the shapes of the
 paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
 K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5, the
 sweep's four cases for K8, the pooled stem for K10, the batch-128 stem for
-K6;
-bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
+K6; bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
 and operations / the peak of their type; library_ms the PyTorch call timed
 beside the kernel, summed the same way, or null); the last is
 ``{"ok": true, "device": {...}}``.  Every time printed is labelled with
@@ -168,13 +177,26 @@ def fail(msg: str):
 
 
 def bsr_work(a, pk, out):
-    """Bytes and int8 operations of one K4 call: A, the stored blocks and
-    their indices, bias and factors in, the output out; the products of
-    the stored blocks only."""
-    nbytes = (a.numel() + pk.blocks.numel() + 4 * (pk.row_ptr.numel()
+    """Bytes and int8 operations of one K4 call, counted from its stored
+    blocks.  In: the columns of A under the block columns that some block
+    row stores (each once; the last block column stops at K), the stored
+    blocks and their indices, bias and factors.  Out: the output.  The
+    products of the stored blocks only."""
+    M, K = a.shape
+    bw = pk.block_w
+    a_cols = sum(min(bw, K - c * bw)
+                 for c in torch.unique(pk.col_idx).tolist())
+    nbytes = (M * a_cols + pk.blocks.numel() + 4 * (pk.row_ptr.numel()
               + pk.col_idx.numel()) + 8 * pk.n_out
               + out.numel() * out.element_size())
-    return nbytes, 2 * a.shape[0] * pk.blocks.numel(), "int8"
+    return nbytes, 2 * M * pk.blocks.numel(), "int8"
+
+
+def plan_text(plan) -> str:
+    """A K3 or K4 call's path, as printed beside its time."""
+    return (f"[{plan.variant}"
+            + (f" N tile {plan.bn}" if plan.bn else "")
+            + f" split {plan.split}]")
 
 
 def sconv_work(x, pk, stride, out):
@@ -275,16 +297,22 @@ def densify(pk) -> torch.Tensor:
         :pk.n_out, :pk.k_dim]
 
 
-def served_launches(_kernels, run, must: list, what: str) -> dict:
+def served_launches(_kernels, run, must: list, what: str,
+                    paths: dict = None) -> dict:
     """Counts of one served path: reset just before ``run()``, read just
-    after; every kernel in ``must`` has to have launched."""
+    after; every kernel in ``must`` has to have launched, and each kernel
+    in ``paths`` on the variant named there only."""
     _kernels.reset_launch_counts()
     out = run()
     counts = _kernels.launch_counts()
-    print(f"launch counts, {what}: {counts}")
+    variants = _kernels.variant_counts()
+    print(f"launch counts, {what}: {counts}; variants: {variants}")
     for name in must:
         if counts[name] == 0:
             fail(f"kernel {name} was never launched by {what}")
+    for name, variant in (paths or {}).items():
+        if set(variants.get(name, {})) - {variant}:
+            fail(f"{what}: {name} took {variants[name]}, not only {variant}")
     return out, counts
 
 
@@ -332,7 +360,7 @@ def main() -> None:
         add_residual, avgpool_global_int8, bsr_matmul_wt, bsr_matmul_wt_plain,
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
         expand_add_int8_plain, flash_attention, flash_attention_plain,
-        im2col_nchw, matmul_int8, matmul_int8_plain,
+        bsr_plan, im2col_nchw, matmul_int8, matmul_int8_plain, matmul_plan,
         maxpool2d_int8, pack_bsr, pack_weight, quantize_input, quantize_s2d,
         quantize_s2d_nchw, sparse_conv2d_int8, sparse_conv2d_int8_plain,
         stem_conv_pool, stem_conv_pool_int8, stem_conv_pool_int8_plain,
@@ -348,6 +376,7 @@ def main() -> None:
     dev = torch.device("cuda", torch.cuda.current_device())
     cl = torch.channels_last
     label = cli.device_label(dev)
+    n_sms = _kernels.sm_count(dev)
     print(label)  # name, power limit: as nvidia-smi prints them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -378,12 +407,13 @@ def main() -> None:
     last_check = {}     # the times of the last check()
 
     def check(kernel, name, fn, plain, shape, work, library=None, iters=10,
-              plain_iters=3, timed=True, tol=0.0):
+              plain_iters=3, timed=True, tol=0.0, plan=None):
         """Kernel vs plain: bit for bit, or within rtol = atol = ``tol``.
         ``work(out)`` gives (bytes, operations, their type) of one call,
         for the bound; ``library`` is one PyTorch call computing the same
         function, timed beside the kernel.  With ``timed`` the times and
-        bounds add to the kernel's totals."""
+        bounds add to the kernel's totals.  ``plan``: K3's or K4's path,
+        printed beside the time."""
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -391,7 +421,6 @@ def main() -> None:
         s["err"] = max(s["err"], err)
         ms, pms = time_ms(fn, iters), time_ms(plain, plain_iters)
         b_ms, o_ms = bound_ms(*work(want))
-        last_check.update(ms=ms, plain_ms=pms, bound_ms=max(b_ms, o_ms))
         lib = ""
         lms = None
         if library is not None:
@@ -400,6 +429,8 @@ def main() -> None:
                 lib = f"  library {lms:.4f} ms"
             except RuntimeError as e:   # a shape the library refuses
                 lib = f"  library refused: {str(e).splitlines()[0]}"
+        last_check.update(ms=ms, plain_ms=pms, bound_ms=max(b_ms, o_ms),
+                          library_ms=lms)
         if timed:
             s["ms"] += ms
             s["plain_ms"] += pms
@@ -413,7 +444,8 @@ def main() -> None:
                torch.allclose(got, want, rtol=tol, atol=tol)))
         print(f"{kernel:12s} {name:6s} {shape:42s} "
               f"{'equal' if tol == 0.0 else f'within {tol:g}'}={ok} "
-              f"(max |err| {err:.3g}) kernel {ms:.4f} ms  plain {pms:.4f} ms"
+              f"(max |err| {err:.3g}) kernel {ms:.4f} ms"
+              f"{' ' + plan_text(plan) if plan else ''}  plain {pms:.4f} ms"
               f"  bound {max(b_ms, o_ms):.4f} ms{lib}  ({label})")
         if not ok:
             fail(f"{kernel} {name}: kernel != plain (max |err| {err})")
@@ -470,7 +502,8 @@ def main() -> None:
                      lambda: matmul_int8(p, m.fc_w, bias=m.fc_b),
                      lambda: matmul_int8_plain(p, m.fc_w, bias=m.fc_b),
                      f"a{list(p.shape)} b{list(m.fc_w.shape)} int32", work,
-                     library=None if mm is None else lambda: mm() + m.fc_b)
+                     library=None if mm is None else lambda: mm() + m.fc_b,
+                     plan=matmul_plan(p, m.fc_w.t(), n_sms))
 
     with torch.inference_mode():
         a = stem_case(mod)
@@ -489,7 +522,8 @@ def main() -> None:
     results, launches = served_launches(
         _kernels, lambda: [engine.run_inference(xb) for xb in batches],
         ["stem_fused", "conv_int8", "matmul_int8"],
-        f"dense ResNet-18, {len(batches)} batches of {BATCH}")
+        f"dense ResNet-18, {len(batches)} batches of {BATCH}",
+        {"matmul_int8": "wgmma_tma"})
     with torch.inference_mode():
         for b, (xb, res) in enumerate(zip(batches, results)):
             if res.logits.shape != (BATCH, CLASSES) or \
@@ -584,7 +618,8 @@ def main() -> None:
     results50, launches50 = served_launches(
         _kernels, lambda: [engine50.run_inference(xb) for xb in batches],
         ["stem_fused", "conv_int8", "matmul_int8", "expand_add"],
-        f"ResNet-50, {len(batches)} batches of {BATCH}")
+        f"ResNet-50, {len(batches)} batches of {BATCH}",
+        {"matmul_int8": "wgmma_tma"})
     if launches50["expand_add"] != 16 * len(batches):
         fail(f"expand_add launched {launches50['expand_add']} times, not "
              f"16 a batch")
@@ -656,7 +691,8 @@ def main() -> None:
                           f"A{list(A.shape)} N{pk.n_out} "
                           f"{pk.nnz_source}/{pk.total_source} blocks",
                           lambda out: bsr_work(A, pk, out),
-                          library=int_mm_call(A, densify(pk)))
+                          library=int_mm_call(A, densify(pk)),
+                          plan=bsr_plan(A, pk, n_sms))
                 d_ms = time_ms(lambda: dcv(inp, conv2d_int8, **join), 10)
                 im2col_total += im_ms
                 dense_total += d_ms
@@ -685,7 +721,8 @@ def main() -> None:
     sresults, slaunches = served_launches(
         _kernels, lambda: [sengine.run_inference(xb) for xb in batches],
         ["stem_fused", "conv_int8", "matmul_int8", "bsr_matmul"],
-        f"sparse ResNet-18, {len(batches)} batches of {BATCH}")
+        f"sparse ResNet-18, {len(batches)} batches of {BATCH}",
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_tma"})
     dengine = InferenceEngine(pruned, device="cuda")
     with torch.inference_mode():
         for b, (xb, res) in enumerate(zip(batches, sresults)):
@@ -743,11 +780,34 @@ def main() -> None:
               f"A{list(f.shape)} N{pk.n_out} "
               f"{pk.nnz_source}/{pk.total_source} blocks (MNIST)",
               lambda out: bsr_work(f, pk, out),
-              library=int_mm_call(f, densify(pk)), timed=False)
+              library=int_mm_call(f, densify(pk)), timed=False,
+              plan=bsr_plan(f, pk, n_sms))
+        # K3 at the MNIST shapes: fc1 dense (requant, ReLU) and fc2
+        w1 = torch.from_numpy(mnist.fc1_w).to(dev).t()
+        for name, a3, w3, kw3 in (
+                ("fc1", f, w1, dict(bias=mm.fc1_b, factors=mm.fc1_f,
+                                    relu=True)),
+                ("fc2", matmul_int8(f, w1, bias=mm.fc1_b, factors=mm.fc1_f,
+                                    relu=True), mm.fc2_wT,
+                 dict(bias=mm.fc2_b))):
+            (M3, K3), N3 = a3.shape, w3.shape[1]
+            lib3 = int_mm_call(a3, w3.t())
+
+            def work3(out, M3=M3, K3=K3, N3=N3):
+                return (M3 * K3 + K3 * N3 + 8 * N3 + out.numel()
+                        * out.element_size(), 2 * M3 * K3 * N3, "int8")
+            check("matmul_int8", name,
+                  lambda: matmul_int8(a3, w3, **kw3),
+                  lambda: matmul_int8_plain(a3, w3, **kw3),
+                  f"a{list(a3.shape)} b{list(w3.shape)} (MNIST, dense)",
+                  work3, library=None if lib3 is None else (
+                      lambda: lib3() + kw3["bias"]), timed=False,
+                  plan=matmul_plan(a3, w3.t(), n_sms))
     mres, mlaunches = served_launches(
         _kernels, lambda: mengine.run_inference(xm),
         ["conv_int8", "matmul_int8", "bsr_matmul"],
-        f"MNIST CNN, a batch of {BATCH}")
+        f"MNIST CNN, a batch of {BATCH}",
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_tma"})
     with torch.inference_mode():
         plain = mm.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
         cpu = MNISTCNNInt8Module(mnist, "cpu")(torch.from_numpy(xm)).numpy()
@@ -1075,7 +1135,8 @@ def main() -> None:
     qres, qlaunches = served_launches(
         _kernels, lambda: qengine.stream(loader, len(batches)),
         ["stem_int8", "conv_int8", "matmul_int8"],
-        f"int8 stream, {len(batches)} batches of {BATCH}")
+        f"int8 stream, {len(batches)} batches of {BATCH}",
+        {"matmul_int8": "wgmma_tma"})
     if qlaunches["stem_fused"] != 0:
         fail("the int8 stream launched K1")
     with torch.inference_mode():
@@ -1180,7 +1241,7 @@ def main() -> None:
         _kernels, lambda: [rengine.run_inference(xb) for xb in batches],
         ["stem_pack", "conv_int8", "matmul_int8"],
         f"ResNet-18 on the s2d stem route, {len(batches)} batches of "
-        f"{BATCH}")
+        f"{BATCH}", {"matmul_int8": "wgmma_tma"})
     if rlaunches["stem_fused"] != 0 or rlaunches["stem_pack"] != len(
             batches):
         fail(f"the s2d route launched K1 {rlaunches['stem_fused']} and K6 "
@@ -1254,11 +1315,13 @@ def main() -> None:
               f"A{list(f.shape)} N{pk.n_out} "
               f"{pk.nnz_source}/{pk.total_source} blocks 14x14",
               lambda out: bsr_work(f, pk, out),
-              library=int_mm_call(f, densify(pk)), timed=False)
+              library=int_mm_call(f, densify(pk)), timed=False,
+              plan=bsr_plan(f, pk, n_sms))
     m14res, m14launches = served_launches(
         _kernels, lambda: m14engine.run_inference(xm),
         ["conv_int8", "matmul_int8", "bsr_matmul"],
-        f"MNIST CNN with fc1 at 14 x 14, a batch of {BATCH}")
+        f"MNIST CNN with fc1 at 14 x 14, a batch of {BATCH}",
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "mma_sync"})
     with torch.inference_mode():
         plain = mm14.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
         cpu = MNISTCNNInt8Module(mnist14, "cpu")(torch.from_numpy(xm)).numpy()
@@ -1286,7 +1349,8 @@ def main() -> None:
                       A, pk), f"A[512, 2048] N2048 {pk.nnz_source}/"
                   f"{pk.total_source} blocks {blk}x{blk}",
                   lambda out: bsr_work(A, pk, out),
-                  library=int_mm_call(A, densify(pk)), timed=False)
+                  library=int_mm_call(A, densify(pk)), timed=False,
+                  plan=bsr_plan(A, pk, n_sms))
             if not torch.equal(bsr_matmul_wt(A, pk).cpu().to(torch.int64),
                                A.cpu().to(torch.int64) @ torch.from_numpy(
                                    W * keep).to(torch.int64).t()):
@@ -1306,15 +1370,15 @@ def main() -> None:
 
     def k4_walk(model_, what):
         """K4 against its plain version at each sparse conv of a batch of
-        8; the summed K4 and plain times."""
+        8; the summed K4, plain, bound and ``_int_mm`` times."""
         m = ResNet18Int8Module(model_, dev).eval()
-        tot = plain_tot = 0.0
+        tot = plain_tot = bound_tot = lib_tot = 0.0
         with torch.inference_mode():
             a = stem_conv_pool(x8, m.stem.weight, m.stem.bias,
                                m.stem.factors, m.s_input)
             for i, (convs, rs) in enumerate(zip(m.blocks, m.res_scales)):
                 def run(tag, inp, **join):
-                    nonlocal tot, plain_tot
+                    nonlocal tot, plain_tot, bound_tot, lib_tot
                     cv = convs[tag]
                     if cv.packed is not None:
                         A = im2col_nchw(inp, cv.kernel, cv.stride,
@@ -1328,25 +1392,32 @@ def main() -> None:
                               lambda: bsr_matmul_wt_plain(A, pk, **kw),
                               f"A{list(A.shape)} {pk.nnz_source}/"
                               f"{pk.total_source} blocks {what}",
-                              lambda out: bsr_work(A, pk, out), timed=False)
+                              lambda out: bsr_work(A, pk, out),
+                              library=int_mm_call(A, densify(pk)),
+                              timed=False, plan=bsr_plan(A, pk, n_sms))
                         tot += last_check["ms"]
                         plain_tot += last_check["plain_ms"]
+                        bound_tot += last_check["bound_ms"]
+                        lib_tot += last_check["library_ms"] or 0.0
                     return cv(inp, conv2d_int8, bsr_matmul_wt, **join)
                 y = run("c1", a)
                 r = run("ds", a) if "ds" in convs else a
                 a = run("c2", y, residual=r, res_scales=rs)
-        return tot, plain_tot
-    k4_14, k4_14p = k4_walk(sparse14, "14x14")
-    k4_128, _ = k4_walk(sparse, "128x128")
+        return tot, plain_tot, bound_tot, lib_tot
+    k4_14, k4_14p, k4_14b, k4_14l = k4_walk(sparse14, "14x14")
+    k4_128, _, k4_128b, k4_128l = k4_walk(sparse, "128x128")
     print(f"K4 over the sparse ResNet-18's convs at batch 8: 14 x 14 "
-          f"{k4_14:.4f} ms (plain {k4_14p:.4f}), 128 x 128 {k4_128:.4f} ms; "
+          f"{k4_14:.4f} ms (plain {k4_14p:.4f}, bound {k4_14b:.4f}, "
+          f"_int_mm on the densified weight {k4_14l:.4f}), 128 x 128 "
+          f"{k4_128:.4f} ms (bound {k4_128b:.4f}, _int_mm {k4_128l:.4f}); "
           f"at batch {BATCH}, 128 x 128: {s4['ms']:.4f} ms  ({label})")
     s14engine = InferenceEngine(sparse14, device="cuda")
     x8np = batches[0][:8]
     s14res, s14launches = served_launches(
         _kernels, lambda: s14engine.run_inference(x8np),
         ["stem_fused", "matmul_int8", "bsr_matmul"],   # every conv is sparse
-        "sparse ResNet-18 at 14 x 14, a batch of 8")
+        "sparse ResNet-18 at 14 x 14, a batch of 8",
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "mma_sync"})
     with torch.inference_mode():
         for what, ref in (
                 ("the plain path", s14engine.module.forward_plain(x8)),

@@ -10,20 +10,30 @@ flags and is redone when either changes.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and adds
-one to the kernel's launch count.  The counts let a run show that its main
-path really went through the kernels.
+one to the kernel's launch count, and to the count of the variant it was
+given (K3's and K4's paths, chosen by shape).  The counts let a run show
+that its main path really went through the kernels, and which path.
+
+K3 and K4 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
+tensor maps are encoded on the host by ``cuTensorMapEncodeTiled``, a
+driver-API function: the library fetches it through
+``cudaGetDriverEntryPoint`` at run time, so the link line needs no
+``-lcuda``.  :func:`cluster_split` and :func:`split_share` are the
+schedule of its split-K clusters, as the kernel computes it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -51,6 +61,7 @@ class Kernel:
     replaces: str          # the TPU kernel it replaces, file:line
     argtypes: List
     launches: int = 0
+    variants: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 KERNELS: Dict[str, Kernel] = {
@@ -66,11 +77,11 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("matmul_int8", "matmul_int8_launch",
                "resnet_accel_tpu_torch/csrc/matmul_int8.cu",
                "resnet_accel_tpu/ops/matmul_int8.py:74",
-               [_P] * 5 + [_I] * 5 + [_P]),
+               [_P] * 5 + [_I] * 7 + [_P]),
         Kernel("bsr_matmul", "bsr_matmul_launch",
                "resnet_accel_tpu_torch/csrc/bsr_matmul.cu",
                "resnet_accel_tpu/ops/bsr_matmul.py:194",
-               [_P] * 7 + [_I] * 9 + [_P]),
+               [_P] * 7 + [_I] * 13 + [_P]),
         Kernel("expand_add", "expand_add_launch",
                "resnet_accel_tpu_torch/csrc/expand_add.cu",
                "resnet_accel_tpu/ops/expand_fused.py:49",
@@ -101,10 +112,70 @@ _lib_lock = threading.Lock()
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.variants.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def variant_counts() -> Dict[str, Dict[str, int]]:
+    """Launches by variant, for the kernels that have more than one path."""
+    return {name: dict(k.variants) for name, k in KERNELS.items()
+            if k.variants}
+
+
+# ---- the split-K schedule of csrc/sm90_gemm_s8.cuh ------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """The path of one K3 or K4 call: its variant, its N tile (columns a
+    CTA; 0 on K4's ``mma_sync`` path) and its cluster split along K."""
+
+    variant: str
+    bn: int
+    split: int
+
+
+#: CTAs of a cluster at most.  The kernel takes up to 8 (the portable
+#: cluster size), but on the H100 a cluster of 4 or 8 costs 4-5 us more
+#: than one of 2 even with nothing to sum, and a grid of such clusters
+#: launches slower still (``kernel_ab.py --splits``; PERF.md §6).
+MAX_SPLIT = 2
+#: A split pays only where every rank of the longest walk keeps more than
+#: this many units: on the H100 a cluster launch costs 1-2 us more than a
+#: plain one, a unit (a 128-byte K stage) 0.2-0.5 us (``kernel_ab.py
+#: --splits``; PERF.md §6).
+MIN_RANK_WALK = 4
+#: The H100's SMs: the schedule's default where no card is asked.
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of ``device`` (a CUDA device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def cluster_split(ctas: int, walk: int, sms: int = H100_SMS) -> int:
+    """CTAs of a cluster along K for a grid of ``ctas`` tiles whose longest
+    walk is ``walk`` units (K tiles or stored blocks' stages): doubled from
+    1 while the grid stays within one CTA an SM of ``sms`` and every rank
+    of the longest walk keeps more than :data:`MIN_RANK_WALK` units, at
+    most :data:`MAX_SPLIT`."""
+    split = 1
+    while (split < MAX_SPLIT and ctas * split * 2 <= sms
+           and walk > MIN_RANK_WALK * split * 2):
+        split *= 2
+    return split
+
+
+def split_share(n: int, split: int, rank: int) -> range:
+    """The units of ``n`` that rank ``rank`` of ``split`` walks: the
+    kernel's ``sm90::split_share``."""
+    per = -(-n // split)
+    lo = min(n, rank * per)
+    return range(lo, min(n, lo + per))
 
 
 def _sources() -> List[str]:
@@ -152,12 +223,15 @@ def build(verbose: bool = False) -> str:
         tmp = os.path.join(work, "libkernels.so")
         link = [nvcc, "-shared", "-o", tmp, *objs]
         errors = []
-        for cmd, proc in procs:
+        t0 = time.perf_counter()
+        for (cmd, proc), src in zip(procs, cu):
             _, err = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{' '.join(cmd)}\n{err}")
             elif verbose:
                 print(err, end="")
+                print(f"nvcc {os.path.basename(src)}: done by "
+                      f"{time.perf_counter() - t0:.1f} s")
         if not errors:
             proc = subprocess.run(link, capture_output=True, text=True)
             if proc.returncode != 0:
@@ -196,12 +270,16 @@ def _call(symbol: str, device: torch.device, args) -> None:
         raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args,
+           variant: Optional[str] = None) -> None:
     """Launch kernel ``name`` on ``device``'s current stream; raise if the
-    launch was refused.  ``args`` are the C arguments before the stream."""
+    launch was refused.  ``args`` are the C arguments before the stream;
+    ``variant`` names the path taken, counted beside the launch."""
     k = KERNELS[name]
     _call(k.symbol, device, args)
     k.launches += 1
+    if variant is not None:
+        k.variants[variant] = k.variants.get(variant, 0) + 1
 
 
 def launch_probe(symbol: str, argtypes: List, device: torch.device,

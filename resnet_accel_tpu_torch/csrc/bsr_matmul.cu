@@ -9,34 +9,43 @@
 // Computes C[M, N] = A[M, K] @ W^T, A int8 row-major, W[N, K] int8 in CSR
 // blocks: the blocks of block row br are blocks[row_ptr[br] .. row_ptr[br
 // + 1]), each [bh, bw] row-major (W's orientation, so a block row of W is
-// K-contiguous: the layout the mma B fragment wants), at K offset
-// col_idx[i] * bw.  Per output (m, n):
+// K-contiguous: K-major, the layout both tensor-core paths want), at K
+// offset col_idx[i] * bw.  Per output (m, n):
 //   acc = sum over stored blocks (int32, exact) + bias[n]
 //   acc = relu(acc) if relu
 //   out = requant ? clip(rint(float(acc) * factors[n]), -128, 127) : acc
 // A block row with no stored block writes its epilogue of a zero sum.
-// M, N and K may be ragged: reads of A past K and writes past N are
-// masked, so A needs no padded copy.  Any block shape (the reference's own
-// is 14 x 14): the rows of a 64-column slice past bh are zero in shared
-// memory and the epilogue stores only the block row's own bh columns;
-// when bw % 32 != 0 a block's last K step is masked too, its bytes past bw
-// zero (kWhole false: 16-byte loads for whole aligned chunks, byte loads
-// for the rest).
+// M, N and K may be ragged.
 //
 // What bounds it on the H100: on the served model the work is the stored
-// blocks' multiply-adds (77 G over the 18 sparse convs at batch 128, 0.3
-// to 6.6 G each) over im2col matrices of up to 231 MB that the blocks read
-// slab by slab, so it is bound by arithmetic unless the arithmetic runs on
-// the tensor cores; with them, a block's K loop is short (8 steps for a
-// stage-1 conv), and its fixed costs -- the first fetch, the epilogue's
-// byte stores -- weigh as much as the loop.  The design: one block per
-// (128-row M tile, 64-column slice of one block row) walks its row's
-// stored blocks only, consuming 32 K values a step with mma.sync
-// m16n8k32 (8 warps of 32 x 32), the next step's A and W words fetched
-// into registers while the tensor cores work on the current step in
-// shared memory (two stages), as K2 does.  A slice that holds only the
-// padding of N returns at once.  wgmma, TMA and deeper pipelines are the
-// next step.
+// blocks' multiply-adds (77 G over the 18 sparse convs at batch 128) over
+// im2col matrices of up to 231 MB, of which it must read the block
+// columns some block row stores: bound by those bytes (0.1 to 0.3 ms over
+// the 18 convs).  Two paths, chosen by the wrapper by shape:
+//
+// - The Hopper path (bw % 32 == 0, bh % 8 == 0, bh <= 256, K % 16 == 0,
+//   16-byte aligned bases; every 128 x 128 path served) runs
+//   sm90_gemm_s8.cuh's main loop: TMA, an mbarrier ring, wgmma.  One CTA
+//   covers a whole block row (its N tile is the block row's height, or 64
+//   where the row holds 64 outputs, as in the stage-1 convs), so each A
+//   slab a stored block needs is read once per (M tile, block row); the
+//   producer reads row_ptr and col_idx and loads the A box at (col_idx[i]
+//   * bw, m0) and the block at (0, i * bh).  Persistent CTAs walk the
+//   tiles, block row fastest, so that the CTAs at work share A's M tile
+//   in L2.  Where M tiles x block rows leave half the card idle and a row
+//   holds more than 8 blocks (the MNIST fc1), a cluster of two CTAs splits
+//   each row's list of stored blocks.
+// - The mma.sync path below (any other block shape: the reference's 14 x 14,
+//   8 x 8, 16 x 24 ...): one block per (128-row M tile, 64-column slice
+//   of one block row) walks its row's stored blocks only, consuming 32 K
+//   values a step with mma.sync m16n8k32 (8 warps of 32 x 32), the next
+//   step's A and W words fetched into registers while the tensor cores
+//   work on the current step in shared memory (two stages), as K2 does.
+//   Rows of a slice past bh are zero in shared memory and the epilogue
+//   stores only the block row's own bh columns; when bw % 32 != 0 a
+//   block's last K step is masked too, its bytes past bw zero (kWhole
+//   false: 16-byte loads for whole aligned chunks, byte loads for the
+//   rest).  A slice that holds only the padding of N returns at once.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +53,7 @@
 
 #include "epilogue.cuh"
 #include "mma_s8.cuh"
+#include "sm90_gemm_s8.cuh"
 
 namespace {
 
@@ -214,15 +224,84 @@ bsr_int8_kernel(const int8_t* __restrict__ a,
     }
 }
 
+// The Hopper path at N tile ``bn`` in clusters of ``split``.
+int bsr_sm90(const void* a, const void* blocks, const void* row_ptr,
+             const void* col_idx, const void* bias, const void* factors,
+             void* out, int64_t M, int64_t K, int64_t N, int64_t nbr,
+             int64_t bh, int64_t bw, int64_t relu, int64_t requant,
+             int64_t bn, int64_t split, int64_t nnz, cudaStream_t stream) {
+  if (split < 1 || split > sm90::kMaxSplit || sm90::kBM % split ||
+      (bh < N ? bh : N) > bn)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sm90::Params p{};
+  p.a = static_cast<const int8_t*>(a);
+  p.w = static_cast<const int8_t*>(blocks);
+  p.row_ptr = static_cast<const int32_t*>(row_ptr);
+  p.col_idx = static_cast<const int32_t*>(col_idx);
+  p.bias = static_cast<const int32_t*>(bias);
+  p.factors = static_cast<const float*>(factors);
+  p.out = out;
+  p.M = static_cast<int>(M);
+  p.N = static_cast<int>(N);
+  p.K = static_cast<int>(K);
+  p.bk = bw % 128 == 0 ? 128 : bw % 64 == 0 ? 64 : 32;
+  p.layout = sm90::layout_of(p.bk);
+  p.bh = static_cast<int>(bh);
+  p.bw = static_cast<int>(bw);
+  p.split = static_cast<int>(split);
+  p.relu = static_cast<int>(relu);
+  p.requant = static_cast<int>(requant);
+  const int esize = requant ? 1 : 4;
+  p.vec = sm90::store_width(N * esize, bh * esize, out);
+  p.m_tiles = static_cast<int>((M + sm90::kBM - 1) / sm90::kBM);
+  p.n_tiles = static_cast<int>(nbr);
+  CUtensorMap map_a{}, map_w{};
+  cudaError_t err = sm90::make_map(&map_a, a, K, M, p.bk, sm90::kBM,
+                                   /*wide=*/false);
+  // the stored blocks as [nnz * bh, bw]; with none, a map nothing reads
+  if (err == cudaSuccess)
+    err = nnz > 0
+              ? sm90::make_map(&map_w, blocks, bw, nnz * bh, p.bk, bn, true)
+              : sm90::make_map(&map_w, a, K, M, p.bk, bn, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a tile reaches past its block row unless it is the row's height, or
+  // the row is the only one
+  const bool whole = bn == bh || N <= bh;
+  CUtensorMap map_out{};
+  if (bn == 64) {
+    err = sm90::make_out_map<64>(&map_out, p, whole);
+    if (err == cudaSuccess)
+      err = sm90::launch<64, true, true>(map_a, map_w, map_out, p, stream);
+  } else if (bn == 128) {
+    err = sm90::make_out_map<128>(&map_out, p, whole);
+    if (err == cudaSuccess)
+      err = sm90::launch<128, true, true>(map_a, map_w, map_out, p, stream);
+  } else if (bn == 256) {
+    err = sm90::make_out_map<256>(&map_out, p, whole);
+    if (err == cudaSuccess)
+      err = sm90::launch<256, true, true>(map_a, map_w, map_out, p, stream);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+// sm90 != 0: the Hopper path at N tile ``bn`` in clusters of ``split``;
+// else the mma.sync path (vec_a: A's rows take 16-byte loads).
 extern "C" int bsr_matmul_launch(const void* a, const void* blocks,
                                  const void* row_ptr, const void* col_idx,
                                  const void* bias, const void* factors,
                                  void* out, int64_t M, int64_t K, int64_t N,
                                  int64_t nbr, int64_t bh, int64_t bw,
                                  int64_t relu, int64_t requant,
-                                 int64_t vec_a, void* stream) {
+                                 int64_t vec_a, int64_t sm90, int64_t bn,
+                                 int64_t split, int64_t nnz, void* stream) {
+  if (sm90)
+    return bsr_sm90(a, blocks, row_ptr, col_idx, bias, factors, out, M, K,
+                    N, nbr, bh, bw, relu, requant, bn, split, nnz,
+                    static_cast<cudaStream_t>(stream));
   const int nsub = static_cast<int>((bh + kBN - 1) / kBN);
   const BsrGeom g{M, static_cast<int>(K), static_cast<int>(N),
                   static_cast<int>(bh), static_cast<int>(bw), nsub};

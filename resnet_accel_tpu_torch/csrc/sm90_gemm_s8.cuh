@@ -1,0 +1,949 @@
+// The Hopper main loop shared by K3 (csrc/matmul_int8.cu, dense) and K4
+// (csrc/bsr_matmul.cu, block-sparse).  Both compute
+//   C[M, N] = A[M, K] @ W^T   for int8 A [M, K] and W [N, K], K-major
+//   acc = sum (int32, exact) + bias[n];  acc = relu(acc) if relu
+//   out = requant ? clip(rint(f32(acc) * factors[n]), -128, 127) : acc
+// and differ only in the K tiles a CTA walks: every tile of K for K3, the
+// stored blocks of one block row for K4.
+//
+// A tile is 128 rows of M by BN columns of N (K4: one block row):
+// - TMA.  The host encodes a tensor map over A [M, K] and one over the
+//   weight rows (cuTensorMapEncodeTiled, fetched through
+//   cudaGetDriverEntryPoint, so the library links without -lcuda), boxes
+//   of bk K bytes (128, 64 or 32, each with the swizzle of its width) by
+//   128 or BN rows.  TMA zero-fills past the tensor's end, so ragged M, N
+//   and K need no mask in the main loop.
+// - Pipeline.  A ring of kStages stages with a full and an empty mbarrier
+//   each.  One producer warp (one lane issues the copies) runs ahead; two
+//   consumer warpgroups, 64 rows each, issue wgmma.m64nBNk32.s32.s8.s8 on
+//   both operands in shared memory through descriptors that name the same
+//   swizzle, keep one commit group in flight and free a stage once the
+//   group that read it has retired.
+// - Persistent CTAs.  Without a split, the grid is as many CTAs as the
+//   card holds at once, each walking tiles gridDim.x apart; the ring and
+//   its phases run on across tiles, so the producer loads the next tile
+//   while the consumers store this one.  The consumers store straight from
+//   their accumulator fragments, a quad of lanes 32 contiguous bytes of a
+//   row (int8 columns transposed across the quad by shuffles); at BN 64 an
+//   int8 tile is staged instead over the W half of its last stage and
+//   leaves by one TMA store.  Bias and factors come through the read-only
+//   path, once a column.  The A map fetches only the box's bytes into L2
+//   for K4 (the next block column of a row is often not stored), 256
+//   bytes around it for dense walks.
+// - Split-K.  With a split, the CTAs of a thread-block cluster (2 to 8,
+//   along K) each sum a share of one tile's K units in int32 and stage the
+//   partial in their shared memory.  After a cluster barrier, rank r adds
+//   the partials of rows [r * 128 / split, (r + 1) * 128 / split) from
+//   every rank through distributed shared memory, runs their epilogue and
+//   writes each row in stores of the widest width (16 bytes down to 1) its
+//   pitch allows.  One launch, no workspace, no atomics, and the same bits
+//   for every split: the sum is an integer sum.  The wrappers split only
+//   long walks, by two (see _kernels.cluster_split: larger clusters cost
+//   more than they save on the H100).
+// - The staged variant (kTma false, K3 only) fills the same swizzled
+//   stages from the producer warp with 16-byte or masked byte loads, for
+//   the shapes TMA refuses: K % 16 != 0 or a base off 16 bytes.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "epilogue.cuh"
+
+namespace sm90 {
+namespace {
+
+constexpr int kBM = 128;                   // A rows a CTA
+constexpr int kBK = 128;                   // K bytes a stage, at most
+constexpr int kConsumers = 256;            // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kMaxSplit = 8;               // portable cluster size
+constexpr int kMaxDevices = 16;            // devices whose residency is kept
+
+template <int BN>
+struct Cfg {
+  static constexpr int kStages = BN <= 64 ? 4 : 3;
+  static constexpr int kA = kBM * kBK;      // bytes of an A stage
+  static constexpr int kW = BN * kBK;       // bytes of a W stage
+  static constexpr int kRing = kStages * (kA + kW);
+  static constexpr int kLd = BN + 8;        // int32s a staged row
+  static_assert(kBM * kLd * 4 <= kRing, "the staged partial reuses the ring");
+  // the ring (aligned to 1024 bytes by hand), then 2 * kStages mbarriers
+  static constexpr int kSmem = 1024 + kRing + 16 * kStages;
+  static constexpr int kMinBlocks = BN <= 128 ? 2 : 1;  // CTAs an SM
+  // An int8 tile leaves by TMA store at BN 64 only: on the H100 it made
+  // the stage-1 convs' K4 15 % faster, but wider tiles 10-20 % slower
+  // (the staging's two barriers, and registers spilled at two CTAs an SM)
+  // than the fragment stores (kernel_ab.py --splits; PERF.md §6).
+  static constexpr bool kTmaOut = BN == 64;
+};
+
+struct Params {
+  const int8_t* a;         // A [M, K] (read directly by the staged variant)
+  const int8_t* w;         // W [N, K] (likewise)
+  const int32_t* row_ptr;  // K4: block row br holds blocks [row_ptr[br],
+  const int32_t* col_idx;  //   row_ptr[br + 1]), each at block column col_idx
+  const int32_t* bias;     // [N] or null
+  const float* factors;    // [N] when requant
+  void* out;               // [M, N]: int8 when requant, else int32
+  int M, N, K;
+  int bk, layout;          // K bytes a stage; its wgmma swizzle code
+  int k_tiles;             // K3: bk-byte tiles over K
+  int bh, bw;              // K4: the block shape
+  int n_tiles, m_tiles;    // tiles along N (K4: block rows) and M
+  int split;               // CTAs of a cluster, along K
+  int vec;                 // bytes a store
+  int relu, requant;
+  int tma_out;             // int8 tiles leave by TMA store (map_out)
+};
+
+// Rank ``rank`` of ``split`` walks units [lo, lo + cnt) of n (K tiles or
+// stored blocks): ops' split_share in _kernels.py is the same formula.
+__host__ __device__ __forceinline__ void split_share(int n, int split,
+                                                     int rank, int& lo,
+                                                     int& cnt) {
+  const int per = (n + split - 1) / split;
+  lo = rank * per < n ? rank * per : n;
+  cnt = (lo + per < n ? lo + per : n) - lo;
+}
+
+// ---- PTX ----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// The box of ``map`` at (x, y) (x: K bytes, y: rows) into shared ``dst``;
+// completion (the box's bytes) is reported to ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// The box of ``map`` at (x, y) from shared ``src`` (laid out as the map's
+// swizzle places it), in the current bulk group; past the tensor's end
+// nothing is written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int x,
+                                          int y, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(x), "r"(y), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Until every committed bulk group has read its shared source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Until every committed bulk group has completed its writes.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_n(uint32_t bar, int n) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(n)
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile whose rows are bk bytes
+// (one swizzle atom wide), 8-row groups 8 * bk bytes apart; ``layout`` is
+// the swizzle code (1: 128 bytes, 2: 64, 3: 32) that the tensor map used.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int bk,
+                                              int layout) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * bk) >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Pins the accumulator to its registers across the asynchronous wgmmas, so
+// that the compiler moves none of them while a group is in flight.
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// D[64, N] += A[64, 32] . B[N, 32]^T, s8 x s8 -> s32, both operands in
+// shared memory.  d: the warpgroup's accumulator fragment, N / 2 int32s a
+// thread (register 4j + e: row 16 * warp + lane / 4 + 8 * (e / 2), column
+// 8j + 2 * (lane % 4) + e % 2).
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(int (&d)[BN / 2], uint64_t da,
+                                      uint64_t db) {
+  if constexpr (BN == 64)
+    wgmma_n64(d, da, db);
+  else if constexpr (BN == 128)
+    wgmma_n128(d, da, db);
+  else
+    wgmma_n256(d, da, db);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// Four int32s at shared address ``addr`` of the cluster's CTA ``rank``.
+__device__ __forceinline__ int4 ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  int4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Bytes [k, k + 16) of a row of ``len`` bytes, zero from len on.
+__device__ __forceinline__ int4 load_row16(const int8_t* row, int k,
+                                           int len) {
+  if (k + 16 <= len && (reinterpret_cast<uintptr_t>(row + k) & 15) == 0)
+    return __ldg(reinterpret_cast<const int4*>(row + k));
+  return load16_masked(row + k, len - k);
+}
+
+// v[4g .. 4g + 3] = t, or += t.
+__device__ __forceinline__ void put4(int (&v)[16], int g, int4 t, bool add) {
+  v[4 * g] = (add ? v[4 * g] : 0) + t.x;
+  v[4 * g + 1] = (add ? v[4 * g + 1] : 0) + t.y;
+  v[4 * g + 2] = (add ? v[4 * g + 2] : 0) + t.z;
+  v[4 * g + 3] = (add ? v[4 * g + 3] : 0) + t.w;
+}
+
+// ``bytes`` bytes of ``w`` (16 int32 words, or 4 words of packed int8) to
+// ``dst`` in stores of ``vec`` bytes; a store whose first byte is at or
+// past ``valid`` is left out.
+__device__ __forceinline__ void store_unit(uint8_t* dst,
+                                           const uint32_t (&w)[16],
+                                           int bytes, int valid, int vec) {
+  if (vec == 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (16 * i < bytes && 16 * i < valid)
+        *reinterpret_cast<uint4*>(dst + 16 * i) =
+            make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  } else if (vec == 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (8 * i < bytes && 8 * i < valid)
+        *reinterpret_cast<uint2*>(dst + 8 * i) =
+            make_uint2(w[2 * i], w[2 * i + 1]);
+  } else if (vec == 4) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (4 * i < bytes && 4 * i < valid)
+        *reinterpret_cast<uint32_t*>(dst + 4 * i) = w[i];
+  } else if (vec == 2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (2 * i < bytes && 2 * i < valid)
+        *reinterpret_cast<uint16_t*>(dst + 2 * i) =
+            static_cast<uint16_t>(w[i / 2] >> (16 * (i % 2)));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < bytes && i < valid)
+        dst[i] = static_cast<uint8_t>(w[i / 4] >> (8 * (i % 4)));
+  }
+}
+
+// ---- the kernel -----------------------------------------------------------
+
+// One tile's walk: its output columns, its rows, and the stages of bk K
+// bytes that this rank sums.
+struct Walk {
+  int n0, ncols, m0;  // first output column, columns held, first A row
+  int first, nsteps;  // this rank's units, as stages from ``first``
+  int blk0, sub;      // K4: the block row's first block; stages a block
+};
+
+template <int BN, bool kBsr>
+__device__ __forceinline__ Walk walk_of(const Params& p, int tile, int rank) {
+  Walk wk;
+  const int tile_n = tile % p.n_tiles;
+  wk.m0 = (tile / p.n_tiles) * kBM;
+  wk.sub = 1;
+  wk.blk0 = 0;
+  if constexpr (kBsr) {
+    wk.n0 = tile_n * p.bh;
+    wk.ncols = min(p.bh, p.N - wk.n0);
+    wk.blk0 = p.row_ptr[tile_n];
+    split_share(p.row_ptr[tile_n + 1] - wk.blk0, p.split, rank, wk.first,
+                wk.nsteps);
+    wk.sub = p.bw / p.bk;
+    wk.nsteps *= wk.sub;
+  } else {
+    wk.n0 = tile_n * BN;
+    wk.ncols = min(BN, p.N - wk.n0);
+    split_share(p.k_tiles, p.split, rank, wk.first, wk.nsteps);
+  }
+  return wk;
+}
+
+// The bias and requant factor of output column n, through the read-only
+// path: they cannot alias the output, so their loads run ahead of the
+// stores instead of waiting behind each one.
+struct Col {
+  int bias;
+  float factor;
+};
+
+__device__ __forceinline__ Col col_at(const Params& p, int n) {
+  return {p.bias != nullptr ? __ldg(p.bias + n) : 0,
+          p.requant ? __ldg(p.factors + n) : 0.f};
+}
+
+// bias, ReLU and requant of the int32 sum x at a column.
+__device__ __forceinline__ int finish(const Params& p, int x, Col col) {
+  x += col.bias;
+  if (p.relu) x = max(x, 0);
+  if (p.requant) x = requant_i8(x, col.factor);
+  return x;
+}
+
+// x[i] for a lane-dependent i, kept in registers.
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&x)[4], int i) {
+  return i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
+}
+
+// int8 epilogue of columns [32t, 32t + 32) of the fragment's rows r0 and
+// r0 + 8 (bias, ReLU, requant; each column's bias and factor loaded once
+// for both rows), transposed across the quad of lanes that holds them (2
+// adjacent columns a lane, three shuffles): q[h] is row r0 + 8h's columns
+// [8(4t + lq), +8) as 8 bytes.
+template <int BN>
+__device__ __forceinline__ void quad_bytes(const Params& p,
+                                           const int (&acc)[BN / 2],
+                                           const Walk& wk, int t, int lq,
+                                           uint2 (&q)[2]) {
+  uint32_t x[2][4];  // x[h][g]: this lane's pair of group 4t + g
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int j = 4 * t + g, c = 8 * j + 2 * lq;
+    int v[2][2] = {};
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (c + e < wk.ncols) {
+        const Col col = col_at(p, wk.n0 + c + e);
+        v[0][e] = finish(p, acc[4 * j + e], col);
+        v[1][e] = finish(p, acc[4 * j + 2 + e], col);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      x[h][g] = (v[h][0] & 0xffu) | ((v[h][1] & 0xffu) << 8);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t y[4];  // y[l]: lane l's pair of this lane's group 4t + lq
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const uint32_t v = __shfl_xor_sync(0xffffffffu, pick4(x[h], lq ^ d), d);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        if (l == (lq ^ d)) y[l] = v;
+    }
+    q[h] = make_uint2(y[0] | (y[1] << 16), y[2] | (y[3] << 16));
+  }
+}
+
+// Byte (r, c) of the int8 output tile staged for the TMA store (BN 64):
+// kBM rows of 64 bytes, as the map's 64-byte swizzle places them.
+__device__ __forceinline__ uint32_t out_offset(int r, int c) {
+  return r * 64 + (((c >> 4) ^ ((r >> 1) & 3)) << 4) + (c & 15);
+}
+
+// The int8 epilogue into shared ``tile`` (out_offset's layout), for the
+// TMA store: 8 bytes a lane, a quad's 32 in two 16-byte chunks.
+template <int BN>
+__device__ __forceinline__ void stage_fragment(const Params& p,
+                                               const int (&acc)[BN / 2],
+                                               const Walk& wk, int r0,
+                                               int lq, uint8_t* tile) {
+#pragma unroll
+  for (int t = 0; t < BN / 32; ++t) {
+    uint2 q[2];
+    quad_bytes<BN>(p, acc, wk, t, lq, q);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint2*>(
+          tile + out_offset(r0 + 8 * h, 8 * (4 * t + lq))) = q[h];
+  }
+}
+
+// The epilogue of a whole sum straight from the accumulator fragment to
+// global memory (split 1, where the TMA store does not take the output).
+// int8 out, N % 8 == 0: quad_bytes, so that each lane stores 8 bytes and
+// the quad 32 contiguous ones, a whole sector.  Otherwise each lane stores
+// its pair, as one 2-byte (int8) or 8-byte (int32: the quad's 32 bytes
+// again) store where N is even, else byte by byte.
+template <int BN>
+__device__ __forceinline__ void store_fragment(const Params& p,
+                                               const int (&acc)[BN / 2],
+                                               const Walk& wk, int r0,
+                                               int lq) {
+  const int64_t gm0 = static_cast<int64_t>(wk.m0) + r0;
+  if (p.requant && p.N % 8 == 0) {
+#pragma unroll
+    for (int t = 0; t < BN / 32; ++t) {
+      uint2 q[2];
+      quad_bytes<BN>(p, acc, wk, t, lq, q);
+      const int c0 = 8 * (4 * t + lq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t gm = gm0 + 8 * h;
+        if (gm >= p.M || c0 >= wk.ncols) continue;
+        int8_t* out = static_cast<int8_t*>(p.out) + gm * p.N + wk.n0 + c0;
+        if (c0 + 8 <= wk.ncols) {
+          *reinterpret_cast<uint2*>(out) = q[h];
+        } else {
+          for (int e = 0; e < wk.ncols - c0; ++e)
+            out[e] = static_cast<int8_t>((e < 4 ? q[h].x : q[h].y) >>
+                                         (8 * (e % 4)));
+        }
+      }
+    }
+    return;
+  }
+  const bool pairs = p.N % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * lq;
+    if (c >= wk.ncols) continue;
+    const int n = wk.n0 + c;
+    const bool two = c + 1 < wk.ncols;
+    const Col col0 = col_at(p, n), col1 = two ? col_at(p, n + 1) : Col{};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t gm = gm0 + 8 * h;
+      if (gm >= p.M) continue;
+      const int x0 = finish(p, acc[4 * j + 2 * h], col0);
+      const int x1 = two ? finish(p, acc[4 * j + 2 * h + 1], col1) : 0;
+      const int64_t o = gm * p.N + n;
+      if (p.requant) {
+        int8_t* out = static_cast<int8_t*>(p.out) + o;
+        if (two && pairs) {
+          *reinterpret_cast<uint16_t*>(out) = static_cast<uint16_t>(
+              (x0 & 0xff) | ((x1 & 0xff) << 8));
+        } else {
+          out[0] = static_cast<int8_t>(x0);
+          if (two) out[1] = static_cast<int8_t>(x1);
+        }
+      } else {
+        int32_t* out = static_cast<int32_t*>(p.out) + o;
+        if (two && pairs) {
+          *reinterpret_cast<int2*>(out) = make_int2(x0, x1);
+        } else {
+          out[0] = x0;
+          if (two) out[1] = x1;
+        }
+      }
+    }
+  }
+}
+
+// Grid: with split 1, persistent: CTA b walks tiles b, b + gridDim.x, ...
+// (tile t: N tile -- K4's block row -- t % n_tiles, M tile t / n_tiles),
+// the producer running ahead into the next tile while the consumers store
+// this one.  With split > 1: one tile a cluster of ``split`` CTAs along x.
+template <int BN, bool kBsr, bool kTma>
+__global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
+    gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_w,
+                   const __grid_constant__ CUtensorMap map_out,
+                   const Params p) {
+  using C = Cfg<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms' grid
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t ring_a = base, ring_w = base + C::kStages * C::kA;
+  const uint32_t full = base + C::kRing, empty = full + 8 * C::kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = blockIdx.x % p.split;
+  const int tiles = p.n_tiles * p.m_tiles;
+  const int tile0 = blockIdx.x / p.split, tile_step = gridDim.x / p.split;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full + 8 * s, kTma ? 1 : 32);
+      mbar_init(empty + 8 * s, kConsumers / 32);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- the producer warp ----
+    if (kTma && lane != 0) {
+    } else {
+      int stage = 0, phase = 0;
+      for (int tile = tile0; tile < tiles; tile += tile_step) {
+        const Walk wk = walk_of<BN, kBsr>(p, tile, rank);
+        for (int s = 0; s < wk.nsteps; ++s) {
+          int ax, wx, wy;  // A's K byte; W's K byte and row
+          if constexpr (kBsr) {
+            const int blk = wk.blk0 + wk.first + s / wk.sub;
+            wx = (s % wk.sub) * p.bk;
+            ax = p.col_idx[blk] * p.bw + wx;
+            wy = blk * p.bh;
+          } else {
+            ax = wx = (wk.first + s) * p.bk;
+            wy = wk.n0;
+          }
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          if constexpr (kTma) {
+            mbar_expect_tx(full + 8 * stage, (kBM + BN) * p.bk);
+            tma_load(ring_a + stage * C::kA, &map_a, ax, wk.m0,
+                     full + 8 * stage);
+            tma_load(ring_w + stage * C::kW, &map_w, wx, wy,
+                     full + 8 * stage);
+          } else {
+            // 16-byte chunks of the A rows, then the W rows, placed as
+            // TMA's 128-byte swizzle places them (bk is 128 here).
+            for (int c = lane; c < (kBM + BN) * 8; c += 32) {
+              const int r = c / 8, q = c % 8;
+              const bool is_a = r < kBM;
+              const int row = is_a ? r : r - kBM;
+              const int grow = is_a ? wk.m0 + row : wy + row;
+              int4 v = make_int4(0, 0, 0, 0);
+              if (grow < (is_a ? p.M : p.N))
+                v = load_row16((is_a ? p.a : p.w) +
+                                   static_cast<int64_t>(grow) * p.K,
+                               ax + 16 * q, p.K);
+              const int off = is_a ? stage * C::kA
+                                   : C::kStages * C::kA + stage * C::kW;
+              *reinterpret_cast<int4*>(smem + off + row * kBK +
+                                       ((q ^ (row & 7)) << 4)) = v;
+            }
+            // the generic-proxy stores, visible to wgmma's async proxy
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            mbar_arrive(full + 8 * stage);
+          }
+          if (++stage == C::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- the consumer warpgroups ----
+    const int wg = warp / 4;  // rows [64 * wg, 64 * wg + 64) of the tile
+    const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4, lq = lane % 4;
+    const int nk = p.bk / 32;
+    int stage = 0, phase = 0;
+    for (int tile = tile0; tile < tiles; tile += tile_step) {
+      const Walk wk = walk_of<BN, kBsr>(p, tile, rank);
+      int acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      int prev = 0;
+      for (int s = 0; s < wk.nsteps; ++s) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = ring_a + stage * C::kA + wg * 64 * p.bk;
+        const uint32_t w = ring_w + stage * C::kW;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk)
+          if (kk < nk)
+            wgmma<BN>(acc, smem_desc(a + 32 * kk, p.bk, p.layout),
+                      smem_desc(w + 32 * kk, p.bk, p.layout));
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();  // the previous step's group has retired:
+        if (s > 0 && lane == 0) mbar_arrive(empty + 8 * prev);  // free it
+        prev = stage;
+        if (++stage == C::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      // The TMA store stages the int8 tile over the W half of the tile's
+      // last stage (BN x 128 bytes, the tile's size), freed once read.
+      const bool via_tma =
+          C::kTmaOut && p.tma_out && p.split == 1 && wk.nsteps > 0;
+      if (wk.nsteps > 0 && !via_tma && lane == 0)
+        mbar_arrive(empty + 8 * prev);
+      if (via_tma) {
+        if constexpr (C::kTmaOut) {
+          // both warpgroups' wgmmas have read the stage's W
+          asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+          const uint32_t tile = ring_w + prev * C::kW;
+          stage_fragment<BN>(p, acc, wk, r0, lq, smem + (tile - base));
+          // the generic-proxy stores, visible to the TMA's async proxy
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+          if (tid == 0) {
+            tma_store(&map_out, wk.n0, wk.m0, tile);
+            bulk_commit();
+            bulk_wait_read();
+            mbar_arrive_n(empty + 8 * prev, kConsumers / 32);
+          }
+        }
+      } else if (p.split == 1) {
+        store_fragment<BN>(p, acc, wk, r0, lq);
+      } else {
+        // Both warpgroups are done with the ring (this cluster's only
+        // tile): stage the partial over it.
+        asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        int* st = reinterpret_cast<int*>(smem);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = 8 * j + 2 * lq;
+          *reinterpret_cast<int2*>(&st[r0 * C::kLd + c]) =
+              make_int2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<int2*>(&st[(r0 + 8) * C::kLd + c]) =
+              make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+    }
+  }
+  if (p.split == 1) {
+    if (p.tma_out && tid == 0) bulk_wait();  // the last tile's stores
+    return;
+  }
+
+  cluster_sync();  // every rank's partial is staged
+
+  // This rank's rows, 16 columns a unit: the partials of every rank added,
+  // then the epilogue, then the stores.
+  if (tid < kConsumers) {
+    const Walk wk = walk_of<BN, kBsr>(p, tile0, rank);
+    const int* st = reinterpret_cast<const int*>(smem);
+    const int rows = kBM / p.split, per_row = BN / 16;
+    const int esize = p.requant ? 1 : 4;
+    for (int u = tid; u < rows * per_row; u += kConsumers) {
+      const int row = rank * rows + u / per_row, c = (u % per_row) * 16;
+      const int64_t gm = static_cast<int64_t>(wk.m0) + row;
+      if (gm >= p.M || c >= wk.ncols) continue;
+      int v[16];
+      const int at = row * C::kLd + c;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        put4(v, g, *reinterpret_cast<const int4*>(&st[at + 4 * g]), false);
+      for (int q = 0; q < p.split; ++q) {
+        if (q == rank) continue;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          put4(v, g, ld_cluster(base + 4 * (at + 4 * g), q), true);
+      }
+      uint32_t w[16] = {};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int x =
+            c + j < wk.ncols ? finish(p, v[j], col_at(p, wk.n0 + c + j)) : 0;
+        if (p.requant)
+          w[j / 4] |= (static_cast<uint32_t>(x) & 0xffu) << (8 * (j % 4));
+        else
+          w[j] = static_cast<uint32_t>(x);
+      }
+      const int valid = (wk.ncols - c < 16 ? wk.ncols - c : 16) * esize;
+      store_unit(static_cast<uint8_t*>(p.out) +
+                     (gm * p.N + wk.n0 + c) * esize,
+                 w, 16 * esize, valid, p.vec);
+    }
+  }
+
+  cluster_sync();  // no CTA leaves while another reads its partial
+}
+
+// ---- the host side --------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: fetched once through the
+// runtime, so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The wgmma swizzle code of a bk-byte K box (the tensor map's swizzle).
+int layout_of(int bk) { return bk == 128 ? 1 : bk == 64 ? 2 : 3; }
+
+// A map over the int8 array [rows, inner] of row pitch ``inner`` bytes,
+// boxes of box_inner bytes by box_rows rows, swizzled by box_inner bytes.
+// ``wide``: L2 fetches each row's 256 bytes around the box, for boxes
+// whose neighbours are read next (dense walks); else only the box's own
+// bytes (K4's A: the next box of a row is often a block column no block
+// row stores).
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t inner,
+                     int64_t rows, int box_inner, int box_rows, bool wide) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_inner == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_inner == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapL2promotion promotion =
+      wide               ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+      : box_inner >= 128 ? CU_TENSOR_MAP_L2_PROMOTION_L2_128B
+      : box_inner == 64  ? CU_TENSOR_MAP_L2_PROMOTION_L2_64B
+                         : CU_TENSOR_MAP_L2_PROMOTION_NONE;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The TMA store's map over the int8 output [M, N] (boxes of 64 bytes by
+// kBM rows), where it takes it: Cfg<BN>::kTmaOut, split 1, N % 16 == 0
+// (16-byte row pitch), a 16-byte aligned base and tiles that do not reach
+// into their neighbours' columns (``whole``).  p.tma_out says whether it
+// does.
+template <int BN>
+cudaError_t make_out_map(CUtensorMap* map, Params& p, bool whole) {
+  p.tma_out = Cfg<BN>::kTmaOut && p.requant && p.split == 1 && whole &&
+              p.N % 16 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+  if (!p.tma_out) return cudaSuccess;
+  return make_map(map, p.out, p.N, p.M, 64, kBM, true);
+}
+
+// The widest store (16 bytes down to 1) that every output row of ``pitch``
+// bytes, every tile start ``step`` bytes apart and the base allow.
+int store_width(int64_t pitch, int64_t step, const void* out) {
+  int v = 16;
+  while (v > 1 && (pitch % v || step % v ||
+                   reinterpret_cast<uintptr_t>(out) % v))
+    v /= 2;
+  return v;
+}
+
+// One launch: with split 1, as many CTAs as the card holds at once (at
+// most one a tile), each walking tiles; else a cluster of ``split`` CTAs a
+// tile.  A cluster of one is launched without the cluster attribute: on
+// the H100 that launch is 1-2 us faster.
+template <int BN, bool kBsr, bool kTma>
+cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_w,
+                   const CUtensorMap& map_out, const Params& p,
+                   cudaStream_t stream) {
+  auto* kernel = gemm_s8_kernel<BN, kBsr, kTma>;
+  // resident CTAs on the device, found once per device and instantiation
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::kSmem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kThreads, Cfg<BN>::kSmem);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    resident[dev] = per_sm * sms;
+  }
+  const int64_t tiles = static_cast<int64_t>(p.n_tiles) * p.m_tiles;
+  const int64_t ctas = p.split == 1
+                           ? (tiles < resident[dev] ? tiles : resident[dev])
+                           : tiles * p.split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = Cfg<BN>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(p.split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, map_out, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace sm90

@@ -229,9 +229,11 @@ class MNISTCNNInt8Module(nn.Module):
         self.fc1_packed = None
         if model.fc1_bsr is not None:
             self.fc1_packed = pack_bsr(model.fc1_bsr, device)
+        # [K, N] as .t() views of the row-major [N, K]: the K-major
+        # weights K3 takes without a copy
         self.register_buffer("fc1_wT", None if model.fc1_bsr is not None
-                             else put(model.fc1_w.T, np.int8))
-        self.register_buffer("fc2_wT", put(model.fc2_w.T, np.int8))
+                             else put(model.fc1_w, np.int8).t())
+        self.register_buffer("fc2_wT", put(model.fc2_w, np.int8).t())
         self.register_buffer("fc2_deq", put(
             np.float32(model.act_scales[3]) * model.fc2_w_scales,
             np.float32))

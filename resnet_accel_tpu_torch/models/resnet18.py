@@ -744,8 +744,10 @@ class ResNet18Int8Module(nn.Module):
                         qc.w2d, qc.in_channels, qc.kernel, device), device)
             self.blocks.append(convs)
             self.res_scales.append((blk.s_main, blk.s_res, blk.s_out))
+        # [K, classes] as the .t() view of the row-major [classes, K]: the
+        # K-major weight K3 takes without a copy
         self.register_buffer("fc_w", torch.from_numpy(
-            np.ascontiguousarray(model.fc_w.T)).to(device))
+            np.ascontiguousarray(model.fc_w, np.int8)).to(device).t())
         self.register_buffer("fc_b", torch.from_numpy(
             np.asarray(model.fc_b, np.int32)).to(device))
         self.register_buffer("fc_deq", torch.from_numpy(

@@ -8,6 +8,7 @@ from resnet_accel_tpu_torch.ops.bsr_matmul import (
     bsr_matmul_wt,
     bsr_matmul_wt_plain,
     bsr_matmul_wt_xla,
+    bsr_plan,
     pack_bsr,
     pack_gather_bsr,
 )
@@ -44,6 +45,7 @@ from resnet_accel_tpu_torch.ops.fused_stem import (
 from resnet_accel_tpu_torch.ops.matmul_int8 import (
     matmul_int8,
     matmul_int8_plain,
+    matmul_plan,
 )
 from resnet_accel_tpu_torch.ops.pooling import (
     avgpool_global_int8,
@@ -72,6 +74,7 @@ __all__ = [
     "bsr_matmul_wt",
     "bsr_matmul_wt_plain",
     "bsr_matmul_wt_xla",
+    "bsr_plan",
     "conv2d_int8",
     "conv2d_int8_plain",
     "exact_inv_out_scale",
@@ -84,6 +87,7 @@ __all__ = [
     "im2col_nchw",
     "matmul_int8",
     "matmul_int8_plain",
+    "matmul_plan",
     "maxpool2d_int8",
     "pack_bsr",
     "pack_gather_bsr",

@@ -12,7 +12,10 @@ and both versions compute
 ``bsr_matmul_wt`` launches the CUDA kernel ``csrc/bsr_matmul.cu`` for CUDA
 tensors and runs :func:`bsr_matmul_wt_plain` for CPU tensors.  A block row
 with no stored block still yields its output columns (``bias`` through the
-epilogue), as the TPU kernel's zero filler block does.
+epilogue), as the TPU kernel's zero filler block does.  The kernel has two
+paths, chosen by shape (:func:`bsr_plan`): the Hopper main loop (TMA,
+``wgmma``, split-K clusters) for blocks the tensor-core tiles take, every
+128 x 128 path served; the ``mma.sync`` path for any other block shape.
 
 ``bsr_matmul_wt_xla`` over a :class:`GatherBSR` is the other route, the
 one the LM's projections take, as the JAX package's LM does: the
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from resnet_accel_tpu_torch import _kernels
+from resnet_accel_tpu_torch._kernels import GemmPlan, cluster_split
 from resnet_accel_tpu_torch.ops.epilogue import requantize
 from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix
 
@@ -51,6 +55,7 @@ class PackedBSR:
     k_padded: int
     nnz_source: int          # stored blocks
     total_source: int        # blocks of the padded grid
+    max_row_blocks: int      # the fullest block row's stored blocks
 
 
 def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
@@ -61,6 +66,7 @@ def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
     def put(arr, dtype):
         return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
 
+    counts = np.diff(np.asarray(bsr.row_ptr))
     return PackedBSR(
         blocks=put(bsr.data, np.int8).reshape(-1, bsr.block_h, bsr.block_w),
         row_ptr=put(bsr.row_ptr, np.int32),
@@ -68,7 +74,8 @@ def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
         block_h=bsr.block_h, block_w=bsr.block_w,
         n_out=bsr.shape[0], k_dim=bsr.shape[1],
         n_padded=bsr.padded_shape[0], k_padded=bsr.padded_shape[1],
-        nnz_source=bsr.nnz_blocks, total_source=bsr.total_blocks)
+        nnz_source=bsr.nnz_blocks, total_source=bsr.total_blocks,
+        max_row_blocks=int(counts.max()) if counts.size else 0)
 
 
 def _check_k(a: torch.Tensor, packed: PackedBSR) -> None:
@@ -115,6 +122,34 @@ def bsr_matmul_wt_plain(
     return acc
 
 
+def bsr_plan(a: torch.Tensor, packed: PackedBSR,
+             sms: int = _kernels.H100_SMS) -> GemmPlan:
+    """K4's path for ``a`` against ``packed``, by shape.
+
+    ``wgmma_tma``, the Hopper main loop, where its tiles take the blocks
+    (``block_w % 32 == 0``, ``block_h % 8 == 0``, ``block_h <= 256``: the
+    limits of ``wgmma``'s N) and TMA takes A and the blocks (K % 16 == 0,
+    16-byte aligned bases).  Its N tile is the smallest of 64, 128 and 256
+    that holds a block row's outputs (64 where the row ends in padding, as
+    in the stage-1 convs: n_out 64 inside block_h 128), and each block
+    row's list of stored blocks is split across a cluster of two while the
+    grid of M tiles x block rows leaves half the card's ``sms`` SMs idle.
+    Every other shape (the reference's 14 x 14, 8 x 8, 16 x 24 ...):
+    ``mma_sync``, whose ``mma.sync`` tiles take any block."""
+    bh, bw = packed.block_h, packed.block_w
+    M, K = a.shape
+    if not (bw % 32 == 0 and bh % 8 == 0 and bh <= 256 and K % 16 == 0
+            and a.data_ptr() % 16 == 0
+            and packed.blocks.data_ptr() % 16 == 0):
+        return GemmPlan("mma_sync", 0, 1)
+    need = min(bh, packed.n_out)
+    bn = 64 if need <= 64 else 128 if need <= 128 else 256
+    stages = bw // (128 if bw % 128 == 0 else 64 if bw % 64 == 0 else 32)
+    ctas = -(-M // 128) * (packed.n_padded // bh)
+    return GemmPlan("wgmma_tma", bn, cluster_split(
+        ctas, packed.max_row_blocks * stages, sms))
+
+
 def bsr_matmul_wt(
     a: torch.Tensor,
     packed: PackedBSR,
@@ -126,7 +161,8 @@ def bsr_matmul_wt(
     """Zero-skip C[M, n_out] = A[M, K] @ W^T for int8 ``a`` (K is the
     weight's ``k_dim`` or ``k_padded``), with optional int32 ``bias``
     [n_out], ReLU and float32 requant ``factors`` [n_out].  Returns int8
-    when ``factors`` is given, else int32.  Any block shape."""
+    when ``factors`` is given, else int32.  Any block shape; the kernel's
+    path is :func:`bsr_plan`'s."""
     _check_k(a, packed)
     if a.device.type == "cpu":
         return bsr_matmul_wt_plain(a, packed, bias=bias, factors=factors,
@@ -153,7 +189,9 @@ def bsr_matmul_wt(
                       else torch.int32)
     if M == 0:
         return out
-    # 16-byte loads of A need aligned rows; other A take a byte gather.
+    plan = bsr_plan(a, packed, _kernels.sm_count(dev))
+    # The mma.sync path: 16-byte loads of A need aligned rows, other A take a
+    # byte gather.
     vec_a = K % 16 == 0 and a.data_ptr() % 16 == 0
     _kernels.launch(
         "bsr_matmul", dev, a.data_ptr(), packed.blocks.data_ptr(),
@@ -161,7 +199,8 @@ def bsr_matmul_wt(
         None if bias is None else bias.data_ptr(),
         None if factors is None else factors.data_ptr(), out.data_ptr(),
         M, K, N, nbr, bh, bw, int(relu), int(factors is not None),
-        int(vec_a))
+        int(vec_a), int(plan.variant == "wgmma_tma"), plan.bn, plan.split,
+        packed.nnz_source, variant=plan.variant)
     return out
 
 

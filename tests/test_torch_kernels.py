@@ -8,6 +8,8 @@ has PyTorch and a card but no JAX:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -99,19 +101,91 @@ def test_conv_refuses_nchw_input(cuda):
         ops.conv2d_int8(x, w, v, v.float(), padding=1)
 
 
+def _variant_launched(name, before, variant):
+    """One launch of ``name`` since ``before`` (its variant counts), on
+    ``variant``."""
+    after = dict(_kernels.KERNELS[name].variants)
+    grew = {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+    assert grew == {variant: 1}, grew
+
+
+# K3 at the served shapes (ResNet-18's and ResNet-50's fc, the MNIST CNN's
+# fc1 dense and fc2, N = 10 padded by TMA) and the ragged ones (K % 16 != 0:
+# the staged variant), with b as the .t() view of a row-major [N, K] (the
+# served layout, no copy) and as a row-major [K, N] (one copy).
 @pytest.mark.parametrize("M,K,N", [(128, 512, 1000), (5, 37, 19),
-                                   (70, 129, 65)])
+                                   (70, 129, 65), (128, 2048, 1000),
+                                   (128, 9216, 128), (128, 128, 10),
+                                   (20000, 512, 1000)])
 @pytest.mark.parametrize("requant", [False, True])
-def test_matmul(cuda, M, K, N, requant):
+@pytest.mark.parametrize("layout", ["nk_view", "kn"])
+def test_matmul(cuda, M, K, N, requant, layout):
     rng = np.random.default_rng(M + K)
-    a, b = _t(_i8(rng, (M, K)), cuda), _t(_i8(rng, (K, N)), cuda)
+    a, w = _t(_i8(rng, (M, K)), cuda), _t(_i8(rng, (N, K)), cuda)
+    b = w.t() if layout == "nk_view" else w.t().contiguous()
     bias = _t(rng.integers(-2000, 2000, N).astype(np.int32), cuda)
     f = (_t(rng.uniform(1e-5, 1e-3, N).astype(np.float32), cuda)
          if requant else None)
+    before = dict(_kernels.KERNELS["matmul_int8"].variants)
     got = ops.matmul_int8(a, b, bias=bias, factors=f, relu=True)
     torch.cuda.synchronize()
+    _variant_launched("matmul_int8", before,
+                      "wgmma_tma" if K % 16 == 0 else "wgmma_ld")
     assert torch.equal(
         got, ops.matmul_int8_plain(a, b, bias=bias, factors=f, relu=True))
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 2048, 1000), (70, 129, 65)])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_matmul_cluster_splits(cuda, monkeypatch, M, K, N, split):
+    """K3 at every cluster split the kernel takes, forced: the TMA and the
+    staged variant sum the same bits."""
+    rng = np.random.default_rng(K + split)
+    a, w = _t(_i8(rng, (M, K)), cuda), _t(_i8(rng, (N, K)), cuda)
+    bias = _t(rng.integers(-2000, 2000, N).astype(np.int32), cuda)
+    f = _t(rng.uniform(1e-5, 1e-3, N).astype(np.float32), cuda)
+    _force_split(monkeypatch, "matmul_int8", split)
+    for kw in (dict(bias=bias), dict(bias=bias, factors=f, relu=True)):
+        before = dict(_kernels.KERNELS["matmul_int8"].variants)
+        got = ops.matmul_int8(a, w.t(), **kw)
+        torch.cuda.synchronize()
+        _variant_launched("matmul_int8", before,
+                          "wgmma_tma" if K % 16 == 0 else "wgmma_ld")
+        assert torch.equal(got, ops.matmul_int8_plain(a, w.t(), **kw))
+
+
+def test_matmul_unaligned_base(cuda):
+    """K % 16 == 0 but A's base off 16 bytes: TMA refuses it, the staged
+    variant takes it."""
+    rng = np.random.default_rng(3)
+    M, K, N = 128, 512, 1000
+    buf = _t(_i8(rng, (M * K + 16,)), cuda)
+    a = buf[1:1 + M * K].view(M, K)
+    b = _t(_i8(rng, (N, K)), cuda).t()
+    before = dict(_kernels.KERNELS["matmul_int8"].variants)
+    got = ops.matmul_int8(a, b)
+    torch.cuda.synchronize()
+    _variant_launched("matmul_int8", before, "wgmma_ld")
+    assert torch.equal(got, ops.matmul_int8_plain(a, b))
+
+
+def test_matmul_saturated(cuda):
+    """Every input and weight -128 at K 2048: acc = 2^25 + bias, past the
+    integers f32 holds exactly, so float(acc) rounds on both sides."""
+    rng = np.random.default_rng(12)
+    M, K, N = 128, 2048, 1000
+    a = torch.full((M, K), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((N, K), -128, dtype=torch.int8, device=cuda).t()
+    bias = _t(rng.integers(-3000, 3000, N).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, N) * 100 / 2**25).astype(np.float32),
+           cuda)
+    for kw in (dict(bias=bias), dict(bias=bias, factors=f, relu=True)):
+        before = dict(_kernels.KERNELS["matmul_int8"].variants)
+        got = ops.matmul_int8(a, b, **kw)
+        torch.cuda.synchronize()
+        _variant_launched("matmul_int8", before, "wgmma_tma")
+        assert torch.equal(got, ops.matmul_int8_plain(a, b, **kw))
 
 
 def test_divide_by_device_scalar_is_ieee(cuda):
@@ -152,11 +226,92 @@ def test_bsr_matmul(cuda, M, K, N, block, sparsity, requant):
     a, packed, bias, f = _bsr_case(cuda, M, K, N, block, sparsity, M + K)
     kw = dict(bias=bias, factors=f if requant else None, relu=requant)
     before = _kernels.launch_counts()["bsr_matmul"]
+    variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
     got = ops.bsr_matmul_wt(a, packed, **kw)
     torch.cuda.synchronize()
     assert _kernels.launch_counts()["bsr_matmul"] == before + 1
+    # K = 37 is off TMA's 16-byte rows: the mma_sync path
+    _variant_launched("bsr_matmul", variants,
+                      "wgmma_tma" if K % 16 == 0 else "mma_sync")
+    if N == 64:     # n_out 64 inside block_h 128: a 64-column N tile
+        assert ops.bsr_plan(a, packed).bn == 64
     want = ops.bsr_matmul_wt_plain(a, packed, **kw)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _force_split(monkeypatch, module, split):
+    """Make the wrapper in ops' ``module`` launch clusters of ``split``
+    (None: the wrapper's own choice)."""
+    if split is not None:
+        wrapper = sys.modules[f"resnet_accel_tpu_torch.ops.{module}"]
+        monkeypatch.setattr(wrapper, "cluster_split",
+                            lambda *_a, **_k: split)
+
+
+@pytest.mark.parametrize("full_row", [False, True])
+@pytest.mark.parametrize("split", [None, 1, 4, 8])
+def test_bsr_matmul_cluster_split(cuda, monkeypatch, full_row, split):
+    """MNIST fc1's shape, M 128, K 9216, N 128 at 0.9: one M tile and one
+    block row, so the row's stored blocks are split across a cluster (of
+    two by the wrapper's choice; 1, 4 and 8 forced); with ``full_row`` a
+    second block row stores all 72 blocks."""
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    rng = np.random.default_rng(21)
+    M, K = 128, 9216
+    W = _i8(rng, (128, K))
+    W[np.repeat(np.repeat(rng.random((1, 72)) < 0.9, 128, 0), 128, 1)] = 0
+    if full_row:
+        W = np.concatenate([W, _i8(rng, (128, K))])
+    packed = ops.pack_bsr(build_bsr_int8_direct(W, 128), cuda)
+    a = _t(_i8(rng, (M, K)), cuda)
+    bias = _t(rng.integers(-3000, 3000, W.shape[0]).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, W.shape[0]) * 0.011 / np.sqrt(K)).astype(
+        np.float32), cuda)
+    assert ops.bsr_plan(a, packed, _kernels.sm_count(cuda)).split == 2
+    _force_split(monkeypatch, "bsr_matmul", split)
+    for kw in (dict(), dict(bias=bias, factors=f, relu=True)):
+        variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
+        got = ops.bsr_matmul_wt(a, packed, **kw)
+        torch.cuda.synchronize()
+        _variant_launched("bsr_matmul", variants, "wgmma_tma")
+        assert torch.equal(got, ops.bsr_matmul_wt_plain(a, packed, **kw))
+    dense = a.cpu().to(torch.int64) @ torch.from_numpy(W).to(torch.int64).t()
+    assert torch.equal(ops.bsr_matmul_wt(a, packed).cpu().to(torch.int64),
+                       dense)
+
+
+# The Hopper path at every N tile (64, 128, 256) and K box (128, 64, 32
+# bytes; 96-wide blocks take three 32-byte boxes), blocks shorter than
+# the tile (8 rows: the box reads the next blocks' rows, whose columns are
+# not stored), ragged M, N and K.
+@pytest.mark.parametrize("M,K,N,bh,bw", [
+    (300, 576, 200, 128, 128), (200, 512, 512, 256, 128),
+    (130, 448, 192, 64, 64), (70, 160, 96, 32, 32), (129, 256, 44, 8, 32),
+    (100, 288, 100, 24, 96), (40000, 1152, 256, 128, 128),
+    (20000, 512, 512, 256, 128)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_bsr_matmul_sm90_shapes(cuda, M, K, N, bh, bw, requant):
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    rng = np.random.default_rng(M + K + bh)
+    W = _i8(rng, (N, K))
+    nbr, nbc = -(-N // bh), -(-K // bw)
+    W[np.repeat(np.repeat(rng.random((nbr, nbc)) < 0.5, bh, 0), bw,
+                1)[:N, :K]] = 0
+    packed = ops.pack_bsr(build_bsr_int8_direct(W, bh, bw), cuda)
+    a = _t(_i8(rng, (M, K)), cuda)
+    bias = _t(rng.integers(-3000, 3000, N).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, N) * 0.011 / np.sqrt(K)).astype(
+        np.float32), cuda)
+    kw = dict(bias=bias, factors=f if requant else None, relu=requant)
+    variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
+    got = ops.bsr_matmul_wt(a, packed, **kw)
+    torch.cuda.synchronize()
+    _variant_launched("bsr_matmul", variants, "wgmma_tma")
+    assert torch.equal(got, ops.bsr_matmul_wt_plain(a, packed, **kw))
+    if not requant:
+        dense = a.cpu().to(torch.int64) @ torch.from_numpy(W).to(
+            torch.int64).t() + bias.cpu()
+        assert torch.equal(got.cpu().to(torch.int64), dense)
 
 
 def test_bsr_matmul_empty_block_row(cuda):
@@ -174,8 +329,10 @@ def test_bsr_matmul_empty_block_row(cuda):
                     shape=(384, 256), block_h=128, block_w=128)
     bsr.validate()
     packed = ops.pack_bsr(bsr, cuda)
+    variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
     got = ops.bsr_matmul_wt(a, packed, bias=bias, factors=f, relu=True)
     torch.cuda.synchronize()
+    _variant_launched("bsr_matmul", variants, "wgmma_tma")
     assert torch.equal(got, ops.bsr_matmul_wt_plain(
         a, packed, bias=bias, factors=f, relu=True))
     empty = ops.requantize(bias[128:256].clamp_min(0), f[128:256])
@@ -204,9 +361,11 @@ def test_bsr_matmul_block_shapes(cuda, M, K, N, bh, bw, requant):
         np.float32), cuda)
     kw = dict(bias=bias, factors=f if requant else None, relu=requant)
     before = _kernels.launch_counts()["bsr_matmul"]
+    variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
     got = ops.bsr_matmul_wt(a, packed, **kw)
     torch.cuda.synchronize()
     assert _kernels.launch_counts()["bsr_matmul"] == before + 1
+    _variant_launched("bsr_matmul", variants, "mma_sync")
     want = ops.bsr_matmul_wt_plain(a, packed, **kw)
     assert got.dtype == want.dtype and torch.equal(got, want)
     if not requant:     # the dense product of the same weights
