@@ -19,7 +19,12 @@ result line) without them.  Phases, each fatal on failure:
    Prints the median kernel and plain times (CUDA events; device time, the
    host's launch time left out), each call's bound and, for K3, its path
    (variant, N tile, cluster split) and the time of ``torch._int_mm``
-   plus the bias.
+   plus the bias.  K2 must run its Hopper path (``wgmma_tma``) at every
+   conv; its time and bound are printed summed by stage.  (On every phase
+   below, the variant counts show K2's path: ``wgmma_tma`` on every conv
+   whose input has a multiple of 32 channels, ``mma_sync`` only on the
+   space-to-depth stem's 4x4 conv and the MNIST conv1; a served path's
+   counts must match exactly.)
 3. Serve three batches of 128 through ``InferenceEngine(device="cuda")``
    with every launch count reset to 0 just before; K1-K3 must each have
    launched, K3 on its TMA variant only (the variant counts are printed
@@ -132,7 +137,8 @@ paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
 K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5, the
 sweep's four cases for K8, the pooled stem for K10, the batch-128 stem for
 K6; bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
-and operations / the peak of their type; library_ms the PyTorch call timed
+and operations / the peak of their type, K5's at the 3xTF32 rate it
+runs; library_ms the PyTorch call timed
 beside the kernel, summed the same way, or null); the last is
 ``{"ok": true, "device": {...}}``.  Every time printed is labelled with
 the card's name and power limit.
@@ -261,9 +267,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 #: The card's published peaks (NVIDIA's H100 SXM data sheet; dense rates at
-#: the 700 W limit): device memory, int8 tensor cores, float32 FFMA.
+#: the 700 W limit): device memory, int8 tensor cores, float32 FFMA, and
+#: float32 products in three TF32 tensor-core passes (3xTF32, K5's: a third
+#: of the 495 TFLOP/s TF32 rate).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 
 
 def bound_ms(nbytes: float, ops: float, kind: str):
@@ -301,7 +309,8 @@ def served_launches(_kernels, run, must: list, what: str,
                     paths: dict = None) -> dict:
     """Counts of one served path: reset just before ``run()``, read just
     after; every kernel in ``must`` has to have launched, and each kernel
-    in ``paths`` on the variant named there only."""
+    in ``paths`` on the variant named there only, or, where ``paths``
+    gives a dict, exactly that many times on each variant."""
     _kernels.reset_launch_counts()
     out = run()
     counts = _kernels.launch_counts()
@@ -311,9 +320,23 @@ def served_launches(_kernels, run, must: list, what: str,
         if counts[name] == 0:
             fail(f"kernel {name} was never launched by {what}")
     for name, variant in (paths or {}).items():
-        if set(variants.get(name, {})) - {variant}:
-            fail(f"{what}: {name} took {variants[name]}, not only {variant}")
+        got = variants.get(name, {})
+        if (got != variant if isinstance(variant, dict)
+                else set(got) - {variant}):
+            fail(f"{what}: {name} took {got}, not {variant}")
     return out, counts
+
+
+def k2_since(_kernels, before: dict, expect: str, what: str) -> dict:
+    """K2's launches since ``before`` (its variant counts then): every one
+    on the path ``expect``."""
+    after = _kernels.KERNELS["conv_int8"].variants
+    grew = {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+    if not grew or set(grew) - {expect}:
+        fail(f"{what}: K2 took {grew}, not only {expect}")
+    print(f"K2 paths, {what}: {grew}")
+    return grew
 
 
 def mnist_int8_dir(path: str, seed: int) -> None:
@@ -352,7 +375,8 @@ def main() -> None:
     from resnet_accel_tpu_torch.models.mnist_cnn import (
         MNISTCNNInt8, MNISTCNNInt8Module)
     from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
-                                                      quantize_resnet)
+                                                      quantize_resnet,
+                                                      trunk_convs)
     from resnet_accel_tpu_torch.models.resnet18 import (
         ResNet18Int8Module, attach_bsr, init_resnet18_fp32,
         prune_params_blockwise, quantize_resnet18)
@@ -477,7 +501,9 @@ def main() -> None:
                                                   st.factors, m.s_input),
                      f"x{list(x.shape)} fp32", work)
 
-    def conv_case(name, cv, inp, **join):
+    k2_stages = {}      # (depth, stage): [K2 ms, bound ms, convs]
+
+    def conv_case(depth, name, cv, inp, **join):
         shape = (f"x{list(inp.shape)} k{cv.weight.shape[-1]} "
                  f"s{cv.stride} O{cv.weight.shape[0]}"
                  + (" +join" if join else ""))
@@ -487,9 +513,24 @@ def main() -> None:
             return (inp.numel() + cv.weight.numel() + 8 * out.shape[1]
                     + res + out.numel(),
                     2 * out.numel() * cv.weight[0].numel(), "int8")
-        return check("conv_int8", name,
-                     lambda: cv(inp, conv2d_int8, **join),
-                     lambda: cv(inp, conv2d_int8_plain, **join), shape, work)
+        out = check("conv_int8", name,
+                    lambda: cv(inp, conv2d_int8, **join),
+                    lambda: cv(inp, conv2d_int8_plain, **join), shape, work)
+        st = k2_stages.setdefault((depth, stage_of[depth][name]), [0, 0, 0])
+        st[0] += last_check["ms"]
+        st[1] += last_check["bound_ms"]
+        st[2] += 1
+        return out
+
+    stage_of = {d: {c.name: c.stage for c in trunk_convs(d)}
+                for d in (18, 50)}
+
+    def k2_stage_lines(depth):
+        for (d, stage), (ms, bnd, n) in sorted(k2_stages.items()):
+            if d == depth:
+                print(f"K2 ResNet-{depth} stage {stage} ({n} convs): "
+                      f"{ms:.4f} ms, bound {bnd:.4f} ms ({ms / bnd:.1f}x)"
+                      f"  ({label})")
 
     def fc_case(m, a):
         p = avgpool_global_int8(a)
@@ -505,17 +546,21 @@ def main() -> None:
                      library=None if mm is None else lambda: mm() + m.fc_b,
                      plan=matmul_plan(p, m.fc_w.t(), n_sms))
 
+    k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
         a = stem_case(mod)
         for i, (convs, rs) in enumerate(zip(mod.blocks, mod.res_scales)):
-            y = conv_case(f"b{i}.c1", convs["c1"], a)
-            r = conv_case(f"b{i}.ds", convs["ds"], a) if "ds" in convs else a
-            a = conv_case(f"b{i}.c2", convs["c2"], y, residual=r,
+            y = conv_case(18, f"b{i}.c1", convs["c1"], a)
+            r = (conv_case(18, f"b{i}.ds", convs["ds"], a) if "ds" in convs
+                 else a)
+            a = conv_case(18, f"b{i}.c2", convs["c2"], y, residual=r,
                           res_scales=rs)
         fc_case(mod, a)
     summary("ResNet-18 walk", {k: dict.fromkeys(v, 0.0)
                                for k, v in stats.items()},
             ("stem_fused", "conv_int8", "matmul_int8"))
+    k2_since(_kernels, k2_before, "wgmma_tma", "the ResNet-18 walk")
+    k2_stage_lines(18)
 
     # ---- 3. the dense slice through the engine ------------------------
     engine = InferenceEngine(model, device="cuda")
@@ -523,7 +568,8 @@ def main() -> None:
         _kernels, lambda: [engine.run_inference(xb) for xb in batches],
         ["stem_fused", "conv_int8", "matmul_int8"],
         f"dense ResNet-18, {len(batches)} batches of {BATCH}",
-        {"matmul_int8": "wgmma_tma"})
+        {"matmul_int8": "wgmma_tma",
+         "conv_int8": {"wgmma_tma": 19 * len(batches)}})
     with torch.inference_mode():
         for b, (xb, res) in enumerate(zip(batches, results)):
             if res.logits.shape != (BATCH, CLASSES) or \
@@ -579,13 +625,15 @@ def main() -> None:
     mod50 = ResNet18Int8Module(model50, dev).eval()
     before = {k: dict(v) for k, v in stats.items()}
     k2_c3_ms = 0.0
+    k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
         a = stem_case(mod50)
         for i, (convs, rs) in enumerate(zip(mod50.blocks,
                                             mod50.res_scales)):
-            y = conv_case(f"b{i}.c1", convs["c1"], a)
-            r = conv_case(f"b{i}.ds", convs["ds"], a) if "ds" in convs else a
-            y = conv_case(f"b{i}.c2", convs["c2"], y)
+            y = conv_case(50, f"b{i}.c1", convs["c1"], a)
+            r = (conv_case(50, f"b{i}.ds", convs["ds"], a) if "ds" in convs
+                 else a)
+            y = conv_case(50, f"b{i}.c2", convs["c2"], y)
             c3 = convs["c3"]
             args = (y, c3.weight.reshape(c3.weight.shape[0], -1), c3.bias,
                     c3.factors, r, *rs)
@@ -611,6 +659,8 @@ def main() -> None:
     summary("ResNet-50 walk", before,
             ("stem_fused", "conv_int8", "expand_add", "matmul_int8"))
     print(f"K2 on the 16 c3 {k2_c3_ms:.4f} ms  ({label})")
+    k2_since(_kernels, k2_before, "wgmma_tma", "the ResNet-50 walk")
+    k2_stage_lines(50)
     del mod50
 
     # ---- 6. ResNet-50 through the engine ------------------------------
@@ -619,7 +669,8 @@ def main() -> None:
         _kernels, lambda: [engine50.run_inference(xb) for xb in batches],
         ["stem_fused", "conv_int8", "matmul_int8", "expand_add"],
         f"ResNet-50, {len(batches)} batches of {BATCH}",
-        {"matmul_int8": "wgmma_tma"})
+        {"matmul_int8": "wgmma_tma",
+         "conv_int8": {"wgmma_tma": 36 * len(batches)}})
     if launches50["expand_add"] != 16 * len(batches):
         fail(f"expand_add launched {launches50['expand_add']} times, not "
              f"16 a batch")
@@ -665,6 +716,7 @@ def main() -> None:
     smod = ResNet18Int8Module(sparse, dev).eval()
     dmod = ResNet18Int8Module(pruned, dev).eval()
     im2col_total = dense_total = 0.0
+    k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
         a = stem_conv_pool(x, smod.stem.weight, smod.stem.bias,
                            smod.stem.factors, smod.s_input)
@@ -708,6 +760,7 @@ def main() -> None:
             y = run("c1", a)
             r = run("ds", a) if "ds" in convs else a
             a = run("c2", y, residual=r, res_scales=rs)
+    k2_since(_kernels, k2_before, "wgmma_tma", "the sparse ResNet-18 walk")
     s4 = stats["bsr_matmul"]
     summary(f"sparse convs ({len(bsr_of)})", {k: dict.fromkeys(v, 0.0)
                                               for k, v in stats.items()},
@@ -722,7 +775,8 @@ def main() -> None:
         _kernels, lambda: [sengine.run_inference(xb) for xb in batches],
         ["stem_fused", "conv_int8", "matmul_int8", "bsr_matmul"],
         f"sparse ResNet-18, {len(batches)} batches of {BATCH}",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_tma"})
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_tma",
+         "conv_int8": "wgmma_tma"})
     dengine = InferenceEngine(pruned, device="cuda")
     with torch.inference_mode():
         for b, (xb, res) in enumerate(zip(batches, sresults)):
@@ -807,7 +861,8 @@ def main() -> None:
         _kernels, lambda: mengine.run_inference(xm),
         ["conv_int8", "matmul_int8", "bsr_matmul"],
         f"MNIST CNN, a batch of {BATCH}",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_tma"})
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_tma",
+         "conv_int8": {"mma_sync": 1, "wgmma_tma": 1}})
     with torch.inference_mode():
         plain = mm.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
         cpu = MNISTCNNInt8Module(mnist, "cpu")(torch.from_numpy(xm)).numpy()
@@ -868,9 +923,11 @@ def main() -> None:
                               .contiguous() for t in blk.qkv_project(x, sc[i]))
                 BH = qh.shape[0]
 
-                def work(out, BH=BH):
-                    pairs = PROMPT * (PROMPT + 1) // 2        # causal
-                    return 4 * qh.numel() * 4, 4 * BH * dh * pairs, "fp32"
+                pairs = PROMPT * (PROMPT + 1) // 2            # causal
+                flops = 4 * BH * dh * pairs
+
+                def work(out, flops=flops):
+                    return 4 * qh.numel() * 4, flops, "tf32x3"
                 want = check(
                     "flash_attention", f"l{i}",
                     lambda: flash_attention(qh, kh, vh, causal=True),
@@ -887,7 +944,8 @@ def main() -> None:
                 print(f"{'':12s} l{i}     SDPA max |err| vs plain "
                       f"{max_abs_err(sdpa(qh, kh, vh, is_causal=True), want):.3g}"
                       f"; int8 ctx values K5 and plain quantize apart: "
-                      f"{apart} of {want.numel()}")
+                      f"{apart} of {want.numel()}; bound at the FFMA rate "
+                      f"{bound_ms(0, flops, 'fp32')[1]:.4f} ms")
                 x = blk(x, causal=True, scales=sc[i], flash=True, plain=True)
 
     summary(f"K5 over one prompt's prefill (BH {H}, 4 layers)",
@@ -1041,6 +1099,7 @@ def main() -> None:
     # ---- 15. the conv sweep: K8 against its plain version and K2 ------
     sweep_rng = np.random.default_rng(1)      # bench --conv's data
     speedups, k8_case_ms = {}, {}
+    k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
         for name, C, O, H, k, s, p in cli.CONV_CASES:
             xs = torch.from_numpy(sweep_rng.integers(
@@ -1076,6 +1135,7 @@ def main() -> None:
     summary("conv sweep (4 cases)", {k: dict.fromkeys(v, 0.0)
                                      for k, v in stats.items()},
             ("sparse_conv",))
+    k2_since(_kernels, k2_before, "wgmma_tma", "the conv sweep's dense K2")
 
     def sweep_lines(text, what):
         rows = [json.loads(ln) for ln in text.splitlines()
@@ -1090,7 +1150,8 @@ def main() -> None:
             return cli.main(["bench", "--conv", "--device", "cuda"])
     rc, claunches = served_launches(
         _kernels, sweep, ["sparse_conv", "conv_int8"],
-        "the conv sweep (bench --conv), 4 cases")
+        "the conv sweep (bench --conv), 4 cases",
+        {"conv_int8": "wgmma_tma"})
     print(buf.getvalue(), end="")
     sweep_lines(buf.getvalue(), "bench --conv")
     t0 = time.perf_counter()
@@ -1136,7 +1197,8 @@ def main() -> None:
         _kernels, lambda: qengine.stream(loader, len(batches)),
         ["stem_int8", "conv_int8", "matmul_int8"],
         f"int8 stream, {len(batches)} batches of {BATCH}",
-        {"matmul_int8": "wgmma_tma"})
+        {"matmul_int8": "wgmma_tma",
+         "conv_int8": {"wgmma_tma": 19 * len(batches)}})
     if qlaunches["stem_fused"] != 0:
         fail("the int8 stream launched K1")
     with torch.inference_mode():
@@ -1203,6 +1265,7 @@ def main() -> None:
     st = mod.stem
     w4 = pack_weight(stem_s2d_weights(model.stem.w2d, 3, 7), 12, 4, dev)
     pad = ((2, 1), (2, 1))
+    k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
         q12 = quantize_s2d(x0, s_in)
         pre = conv2d_int8(q12, w4, st.bias, st.factors, padding=pad,
@@ -1229,6 +1292,7 @@ def main() -> None:
                                       padding=pad, relu=True),
             f"x{list(q12.shape)} k4 s1 O64 pad((2,1),(2,1))", conv_work,
             timed=False)
+    k2_since(_kernels, k2_before, "mma_sync", "the s2d stem's 4x4 conv")
     s2d_ms = parts["K6"] + parts["K2 4x4"] + parts["max pool"]
     print(f"s2d stem at batch {BATCH}: equal to K1 bit for bit; "
           + ", ".join(f"{n} {v:.4f} ms" for n, v in parts.items())
@@ -1241,7 +1305,9 @@ def main() -> None:
         _kernels, lambda: [rengine.run_inference(xb) for xb in batches],
         ["stem_pack", "conv_int8", "matmul_int8"],
         f"ResNet-18 on the s2d stem route, {len(batches)} batches of "
-        f"{BATCH}", {"matmul_int8": "wgmma_tma"})
+        f"{BATCH}", {"matmul_int8": "wgmma_tma",
+                     "conv_int8": {"mma_sync": len(batches),
+                                   "wgmma_tma": 19 * len(batches)}})
     if rlaunches["stem_fused"] != 0 or rlaunches["stem_pack"] != len(
             batches):
         fail(f"the s2d route launched K1 {rlaunches['stem_fused']} and K6 "
@@ -1321,7 +1387,8 @@ def main() -> None:
         _kernels, lambda: m14engine.run_inference(xm),
         ["conv_int8", "matmul_int8", "bsr_matmul"],
         f"MNIST CNN with fc1 at 14 x 14, a batch of {BATCH}",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "mma_sync"})
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "mma_sync",
+         "conv_int8": {"mma_sync": 1, "wgmma_tma": 1}})
     with torch.inference_mode():
         plain = mm14.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
         cpu = MNISTCNNInt8Module(mnist14, "cpu")(torch.from_numpy(xm)).numpy()

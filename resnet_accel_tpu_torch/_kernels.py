@@ -11,12 +11,12 @@ flags and is redone when either changes.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and adds
 one to the kernel's launch count, and to the count of the variant it was
-given (K3's and K4's paths, chosen by shape).  The counts let a run show
+given (K2's, K3's and K4's paths, chosen by shape).  The counts let a run show
 that its main path really went through the kernels, and which path.
 
-K3 and K4 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
-tensor maps are encoded on the host by ``cuTensorMapEncodeTiled``, a
-driver-API function: the library fetches it through
+K2, K3 and K4 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
+tensor maps are encoded on the host by ``cuTensorMapEncodeTiled`` (and
+``cuTensorMapEncodeIm2col`` for K2): the library fetches them through
 ``cudaGetDriverEntryPoint`` at run time, so the link line needs no
 ``-lcuda``.  :func:`cluster_split` and :func:`split_share` are the
 schedule of its split-K clusters, as the kernel computes it.
@@ -73,7 +73,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("conv_int8", "conv_int8_launch",
                "resnet_accel_tpu_torch/csrc/conv_int8.cu",
                "resnet_accel_tpu/ops/conv_bm.py:419",
-               [_P] * 6 + [_I] * 12 + [_F] * 3 + [_P]),
+               [_P] * 6 + [_I] * 13 + [_F] * 3 + [_P]),
         Kernel("matmul_int8", "matmul_int8_launch",
                "resnet_accel_tpu_torch/csrc/matmul_int8.cu",
                "resnet_accel_tpu/ops/matmul_int8.py:74",
@@ -89,7 +89,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("flash_attention", "flash_attention_launch",
                "resnet_accel_tpu_torch/csrc/flash_attention.cu",
                "resnet_accel_tpu/ops/flash_attention.py:43",
-               [_P] * 4 + [_I] * 4 + [_F, _P]),
+               [_P] * 5 + [_I] * 5 + [_F, _P]),
         Kernel("sparse_conv", "sparse_conv_launch",
                "resnet_accel_tpu_torch/csrc/sparse_conv.cu",
                "resnet_accel_tpu/ops/sparse_conv.py:150",

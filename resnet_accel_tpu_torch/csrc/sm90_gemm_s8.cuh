@@ -1,10 +1,14 @@
-// The Hopper main loop shared by K3 (csrc/matmul_int8.cu, dense) and K4
-// (csrc/bsr_matmul.cu, block-sparse).  Both compute
+// The Hopper main loop shared by K3 (csrc/matmul_int8.cu, dense), K4
+// (csrc/bsr_matmul.cu, block-sparse) and K2 (csrc/conv_int8.cu, the conv
+// as an implicit GEMM).  All compute
 //   C[M, N] = A[M, K] @ W^T   for int8 A [M, K] and W [N, K], K-major
 //   acc = sum (int32, exact) + bias[n];  acc = relu(acc) if relu
 //   out = requant ? clip(rint(f32(acc) * factors[n]), -128, 127) : acc
-// and differ only in the K tiles a CTA walks: every tile of K for K3, the
-// stored blocks of one block row for K4.
+// and differ in the K tiles a CTA walks -- every tile of K for K3 and K2,
+// the stored blocks of one block row for K4 -- and in A: a matrix for K3
+// and K4; for K2 (kConv) the conv windows of x [N, H, W, C], which a
+// TMA map in im2col mode fetches a tap at a time (make_im2col_map), with
+// the residual join (epilogue.cuh) fused into the stores.
 //
 // A tile is 128 rows of M by BN columns of N (K4: one block row):
 // - TMA.  The host encodes a tensor map over A [M, K] and one over the
@@ -97,6 +101,11 @@ struct Params {
   int vec;                 // bytes a store
   int relu, requant;
   int tma_out;             // int8 tiles leave by TMA store (map_out)
+  // K2 (kConv): A is the conv window of x [N, H, W, C] channels-last
+  // (p.a), K runs (kh, kw, c), pads are the top and left ones
+  int H, W, C, Ho, Wo, KS, stride, pad_h, pad_w;
+  const int8_t* res;       // K2: the residual [M, N] int8 to join, or null
+  float s_main, s_res, s_out;
 };
 
 // Rank ``rank`` of ``split`` walks units [lo, lo + cnt) of n (K tiles or
@@ -154,6 +163,25 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// K2's A box: pixelsPerColumn pixels of the im2col map, the first at input
+// coordinates (w, h, n), each one's channels [c, c + channelsPerPixel) at
+// tap offset (ow, oh); TMA walks the pixels across row and image ends at
+// the map's stride and zero-fills what lies outside x (the padding).
+__device__ __forceinline__ void tma_load_im2col(uint32_t dst,
+                                                const CUtensorMap* map, int c,
+                                                int w, int h, int n, int ow,
+                                                int oh, uint32_t bar) {
+  const uint16_t ow16 = static_cast<uint16_t>(ow),
+                 oh16 = static_cast<uint16_t>(oh);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "r"(bar), "h"(ow16), "h"(oh16)
       : "memory");
 }
 
@@ -360,6 +388,16 @@ __device__ __forceinline__ int4 load_row16(const int8_t* row, int k,
   return load16_masked(row + k, len - k);
 }
 
+// K2: the input coordinates of output pixel m's top-left tap.
+struct Pixel {
+  int n, h, w;
+};
+
+__device__ __forceinline__ Pixel pixel_of(const Params& p, int m) {
+  const int hw = p.Ho * p.Wo, n = m / hw, r = m - n * hw, oh = r / p.Wo;
+  return {n, oh * p.stride - p.pad_h, (r - oh * p.Wo) * p.stride - p.pad_w};
+}
+
 // v[4g .. 4g + 3] = t, or += t.
 __device__ __forceinline__ void put4(int (&v)[16], int g, int4 t, bool add) {
   v[4 * g] = (add ? v[4 * g] : 0) + t.x;
@@ -459,6 +497,35 @@ __device__ __forceinline__ int finish(const Params& p, int x, Col col) {
   return x;
 }
 
+// K2: the residual join (epilogue.cuh) of n <= 8 requantized int8 values q
+// (lowest byte first) with the residual's bytes at r (8-byte aligned when
+// n is 8).
+__device__ __forceinline__ uint2 join8(const Params& p, uint2 q,
+                                       const int8_t* r, int n) {
+  uint32_t rv[2] = {0u, 0u};
+  if (n == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(r));
+    rv[0] = v.x;
+    rv[1] = v.y;
+  } else {
+    for (int e = 0; e < n; ++e)
+      rv[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(r[e]))
+                   << (8 * (e % 4));
+  }
+  const uint32_t qv[2] = {q.x, q.y};
+  uint32_t o[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = residual_join(static_cast<int8_t>(qv[i] >> (8 * b)),
+                                  static_cast<int8_t>(rv[i] >> (8 * b)),
+                                  p.s_main, p.s_res, p.s_out);
+      o[i] |= (static_cast<uint32_t>(j) & 0xffu) << (8 * b);
+    }
+  return make_uint2(o[0], o[1]);
+}
+
 // x[i] for a lane-dependent i, kept in registers.
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&x)[4], int i) {
   return i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
@@ -511,8 +578,10 @@ __device__ __forceinline__ uint32_t out_offset(int r, int c) {
 }
 
 // The int8 epilogue into shared ``tile`` (out_offset's layout), for the
-// TMA store: 8 bytes a lane, a quad's 32 in two 16-byte chunks.
-template <int BN>
+// TMA store: 8 bytes a lane, a quad's 32 in two 16-byte chunks.  kJoin
+// (K2): joined with the residual p.res, where given, at the rows and
+// columns the store keeps.
+template <int BN, bool kJoin>
 __device__ __forceinline__ void stage_fragment(const Params& p,
                                                const int (&acc)[BN / 2],
                                                const Walk& wk, int r0,
@@ -521,10 +590,16 @@ __device__ __forceinline__ void stage_fragment(const Params& p,
   for (int t = 0; t < BN / 32; ++t) {
     uint2 q[2];
     quad_bytes<BN>(p, acc, wk, t, lq, q);
+    const int c0 = 8 * (4 * t + lq);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<uint2*>(
-          tile + out_offset(r0 + 8 * h, 8 * (4 * t + lq))) = q[h];
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (kJoin) {
+        const int64_t gm = static_cast<int64_t>(wk.m0) + r0 + 8 * h;
+        if (p.res != nullptr && gm < p.M && c0 < wk.ncols)
+          q[h] = join8(p, q[h], p.res + gm * p.N + wk.n0 + c0, 8);
+      }
+      *reinterpret_cast<uint2*>(tile + out_offset(r0 + 8 * h, c0)) = q[h];
+    }
   }
 }
 
@@ -534,7 +609,7 @@ __device__ __forceinline__ void stage_fragment(const Params& p,
 // the quad 32 contiguous ones, a whole sector.  Otherwise each lane stores
 // its pair, as one 2-byte (int8) or 8-byte (int32: the quad's 32 bytes
 // again) store where N is even, else byte by byte.
-template <int BN>
+template <int BN, bool kJoin>
 __device__ __forceinline__ void store_fragment(const Params& p,
                                                const int (&acc)[BN / 2],
                                                const Walk& wk, int r0,
@@ -551,6 +626,9 @@ __device__ __forceinline__ void store_fragment(const Params& p,
         const int64_t gm = gm0 + 8 * h;
         if (gm >= p.M || c0 >= wk.ncols) continue;
         int8_t* out = static_cast<int8_t*>(p.out) + gm * p.N + wk.n0 + c0;
+        if (kJoin && p.res != nullptr)
+          q[h] = join8(p, q[h], p.res + gm * p.N + wk.n0 + c0,
+                       min(8, wk.ncols - c0));
         if (c0 + 8 <= wk.ncols) {
           *reinterpret_cast<uint2*>(out) = q[h];
         } else {
@@ -574,9 +652,14 @@ __device__ __forceinline__ void store_fragment(const Params& p,
     for (int h = 0; h < 2; ++h) {
       const int64_t gm = gm0 + 8 * h;
       if (gm >= p.M) continue;
-      const int x0 = finish(p, acc[4 * j + 2 * h], col0);
-      const int x1 = two ? finish(p, acc[4 * j + 2 * h + 1], col1) : 0;
+      int x0 = finish(p, acc[4 * j + 2 * h], col0);
+      int x1 = two ? finish(p, acc[4 * j + 2 * h + 1], col1) : 0;
       const int64_t o = gm * p.N + n;
+      if (kJoin && p.res != nullptr) {
+        x0 = residual_join(x0, p.res[o], p.s_main, p.s_res, p.s_out);
+        if (two)
+          x1 = residual_join(x1, p.res[o + 1], p.s_main, p.s_res, p.s_out);
+      }
       if (p.requant) {
         int8_t* out = static_cast<int8_t*>(p.out) + o;
         if (two && pairs) {
@@ -603,7 +686,10 @@ __device__ __forceinline__ void store_fragment(const Params& p,
 // (tile t: N tile -- K4's block row -- t % n_tiles, M tile t / n_tiles),
 // the producer running ahead into the next tile while the consumers store
 // this one.  With split > 1: one tile a cluster of ``split`` CTAs along x.
-template <int BN, bool kBsr, bool kTma>
+// kConv (K2, kTma, split 1 only): A is the conv window of x, through
+// map_a's im2col mode; the epilogue joins the residual where p.res is
+// given.
+template <int BN, bool kBsr, bool kTma, bool kConv = false>
 __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
     gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_w,
@@ -638,6 +724,8 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
       int stage = 0, phase = 0;
       for (int tile = tile0; tile < tiles; tile += tile_step) {
         const Walk wk = walk_of<BN, kBsr>(p, tile, rank);
+        Pixel px{};  // K2: where the tile's first window starts
+        if constexpr (kConv) px = pixel_of(p, wk.m0);
         for (int s = 0; s < wk.nsteps; ++s) {
           int ax, wx, wy;  // A's K byte; W's K byte and row
           if constexpr (kBsr) {
@@ -652,8 +740,16 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
           mbar_wait(empty + 8 * stage, phase ^ 1);
           if constexpr (kTma) {
             mbar_expect_tx(full + 8 * stage, (kBM + BN) * p.bk);
-            tma_load(ring_a + stage * C::kA, &map_a, ax, wk.m0,
-                     full + 8 * stage);
+            if constexpr (kConv) {
+              // K byte ax: tap ax / C at (kh, kw), channels from ax % C
+              const int tap = ax / p.C;
+              tma_load_im2col(ring_a + stage * C::kA, &map_a, ax - tap * p.C,
+                              px.w, px.h, px.n, tap % p.KS, tap / p.KS,
+                              full + 8 * stage);
+            } else {
+              tma_load(ring_a + stage * C::kA, &map_a, ax, wk.m0,
+                       full + 8 * stage);
+            }
             tma_load(ring_w + stage * C::kW, &map_w, wx, wy,
                      full + 8 * stage);
           } else {
@@ -731,7 +827,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
           // both warpgroups' wgmmas have read the stage's W
           asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
           const uint32_t tile = ring_w + prev * C::kW;
-          stage_fragment<BN>(p, acc, wk, r0, lq, smem + (tile - base));
+          stage_fragment<BN, kConv>(p, acc, wk, r0, lq, smem + (tile - base));
           // the generic-proxy stores, visible to the TMA's async proxy
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
           asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
@@ -743,7 +839,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
           }
         }
       } else if (p.split == 1) {
-        store_fragment<BN>(p, acc, wk, r0, lq);
+        store_fragment<BN, kConv>(p, acc, wk, r0, lq);
       } else {
         // Both warpgroups are done with the ring (this cluster's only
         // tile): stage the partial over it.
@@ -819,23 +915,38 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled is a driver-API function: fetched once through the
-// runtime, so that the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// A CUDA entry point fetched at run time through the runtime API, so that
+// the library needs no -lcuda; null where the installed CUDA lacks it.
+void* entry_point(const char* name) {
+  void* f = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion(name, &f, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &f, cudaEnableDefault, &q);
 #endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
+  return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? f : nullptr;
+}
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
+  return fn;
+}
+
+EncodeIm2col encode_im2col() {
+  static const EncodeIm2col fn =
+      reinterpret_cast<EncodeIm2col>(entry_point("cuTensorMapEncodeIm2col"));
   return fn;
 }
 
@@ -874,6 +985,40 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t inner,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// K2's A map: x [N, H, W, C] int8 channels-last in im2col mode, boxes of
+// 128 output pixels by bk channels (swizzled by bk bytes).  The pixel box
+// is the positions of the windows' top-left taps: from (-pad_w, -pad_h)
+// to the last output's ((Wo - 1) * stride - pad_w, ...), which the upper
+// corner gives relative to the tensor's far edge; TMA steps through it at
+// the conv's stride and zero-fills every tap that falls outside x.
+cudaError_t make_im2col_map(CUtensorMap* map, const Params& p) {
+  const EncodeIm2col fn = encode_im2col();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const int N = p.M / (p.Ho * p.Wo);
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(p.C), static_cast<cuuint64_t>(p.W),
+      static_cast<cuuint64_t>(p.H), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(p.C),
+      static_cast<cuuint64_t>(p.C) * p.W,
+      static_cast<cuuint64_t>(p.C) * p.W * p.H};
+  const int lower[2] = {-p.pad_w, -p.pad_h};
+  const int upper[2] = {-p.pad_w + (p.Wo - 1) * p.stride - (p.W - 1),
+                        -p.pad_h + (p.Ho - 1) * p.stride - (p.H - 1)};
+  const cuuint32_t elem[4] = {1, static_cast<cuuint32_t>(p.stride),
+                              static_cast<cuuint32_t>(p.stride), 1};
+  const CUtensorMapSwizzle swizzle =
+      p.bk == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : p.bk == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(p.a), dims,
+      strides, lower, upper, static_cast<cuuint32_t>(p.bk), kBM, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The TMA store's map over the int8 output [M, N] (boxes of 64 bytes by
 // kBM rows), where it takes it: Cfg<BN>::kTmaOut, split 1, N % 16 == 0
 // (16-byte row pitch), a 16-byte aligned base and tiles that do not reach
@@ -901,11 +1046,11 @@ int store_width(int64_t pitch, int64_t step, const void* out) {
 // most one a tile), each walking tiles; else a cluster of ``split`` CTAs a
 // tile.  A cluster of one is launched without the cluster attribute: on
 // the H100 that launch is 1-2 us faster.
-template <int BN, bool kBsr, bool kTma>
+template <int BN, bool kBsr, bool kTma, bool kConv = false>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_w,
                    const CUtensorMap& map_out, const Params& p,
                    cudaStream_t stream) {
-  auto* kernel = gemm_s8_kernel<BN, kBsr, kTma>;
+  auto* kernel = gemm_s8_kernel<BN, kBsr, kTma, kConv>;
   // resident CTAs on the device, found once per device and instantiation
   static int resident[kMaxDevices] = {};
   int dev = 0;

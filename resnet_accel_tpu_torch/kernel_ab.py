@@ -1,5 +1,5 @@
-"""K3's and K4's times at the served shapes, for an A/B of two checkouts of
-this package in one call on the card.
+"""K2's, K3's, K4's and K5's times at the served shapes, for an A/B of two
+checkouts of this package in one call on the card.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo P --repo C --repo C \\
         --repo P [--iters 20]
@@ -12,8 +12,8 @@ one call), builds that checkout's kernels and prints one JSON line a case:
 ``--iters`` runs (CUDA events behind a spin of the card, as
 ``chip_smoke.py`` times), then a line with each case's ``torch._int_mm``
 time (cuBLAS's dense int8 GEMM, plus the bias for K3) where cuBLAS takes
-the shape.  The data are seeded: int8 activations and weights, block
-masks drawn at the stated sparsity.
+the shape (and SDPA's for K5).  The data are seeded: int8 activations and
+weights, block masks drawn at the stated sparsity, normal q, k, v.
 
 The cases: K3 at ResNet-18's and ResNet-50's fc (M 128, K 512 and 2048, N
 1000, int32) and the MNIST CNN's dense fc1 (K 9216, N 128, requant and
@@ -22,7 +22,13 @@ ReLU) and fc2 (K 128, N 10); K4 at 128 x 128 blocks at the MNIST fc1
 pruned ResNet-18's 18 sparse convs at batch 128 (0.7; im2col shapes,
 summed); K4 at 14 x 14 (the ``mma_sync`` path) at the MNIST fc1 (its 128 x 128
 blocks at 0.9 regrouped), the 2048 GEMM (0.7) and the 18 convs at batch 8
-(0.7, summed).
+(0.7, summed); K2 at batch 128, 224 x 224, over ResNet-18's 19 trunk
+convs (ReLU on c1, the residual join on c2), summed by stage and in all,
+and over ResNet-50's 36 (its c1, c2 and downsample convs; the c3 run K7);
+K5 at the LM's prefill (T 640, dh 64, causal) at BH 8 and 64, one launch.
+The trunk's conv shapes come from this script's own checkout
+(``models/resnet.py::trunk_convs``), so every checkout times the same
+convs.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo C --splits 1,2,4,8
 
@@ -31,16 +37,61 @@ the wrappers' choice (and at their choice), with the host time of one
 call issued while the card spins, the card's event floor (a one-element
 add), the fixed cost of a launch (K4 over weights that store no block)
 and the sparse ResNet-18's b0.c1 and b2.c1 at batch 128 with int32 and
-with served int8 output.  Needs a card; exits non-zero without one.
+with served int8 output.
+
+    python resnet_accel_tpu_torch/kernel_ab.py --repo C --k2-tiles 64,128
+
+times K2 instead at each trunk conv of ResNet-18 and ResNet-50 (batch
+128) with each N tile given, forced in place of ``conv_tile_n``'s choice;
+``--k5-chunks 1,2,4`` times K5 at the prefill (BH 8 and 64) with each
+chunk size (key tiles a CTA) forced in place of ``flash_plan``'s.
+
+    python resnet_accel_tpu_torch/kernel_ab.py --repo C --ablate
+
+times K2 at ResNet-18's 19 convs and K5 at the prefill on the checkout
+and on copies of its package with one part of a kernel knocked out at
+compile time (``ABLATIONS``; the copies are built under the checkout's
+``resnet_accel_tpu_torch/_build/``): what the part costs, not a result.
+Needs a card; exits non-zero without one.
 """
 
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+
+#: Parts of a kernel knocked out for ``--ablate``: (source under csrc/,
+#: text, replacement) edits, each of which must apply once.
+ABLATIONS = {
+    # K2 sums and loads as it does, but stores nothing: its main loop alone
+    "k2_no_epilogue": [
+        ("sm90_gemm_s8.cuh",
+         "const bool via_tma =\n"
+         "          C::kTmaOut && p.tma_out && p.split == 1 && wk.nsteps > 0;",
+         "const bool via_tma = false;"),
+        ("sm90_gemm_s8.cuh",
+         "        store_fragment<BN, kConv>(p, acc, wk, r0, lq);",
+         "        if (!kConv) store_fragment<BN, kConv>(p, acc, wk, r0, lq);"),
+    ],
+    # K5 with one TF32 pass (hi.hi) in place of three
+    "k5_one_pass": [
+        ("flash_attention.cu",
+         "  mma_tf32(d, alo, bh0, bh1);\n  mma_tf32(d, ahi, bl0, bl1);\n",
+         ""),
+    ],
+    # K5 with the three passes but no operand splits (hi = lo = x)
+    "k5_no_split": [
+        ("flash_attention.cu",
+         '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
+         "  const float r = __fsub_rn(x, __uint_as_float(hi));\n"
+         '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(r));',
+         "  hi = lo = __float_as_uint(x);"),
+    ],
+}
 
 #: The pruned ResNet-18's 18 sparse convs at 224 x 224 after im2col, per
 #: image: (output pixels, K = C * k * k, N = output channels).
@@ -83,8 +134,10 @@ def _host_ms(torch, fn):
     return (t1 - t0) * 1e3
 
 
-def _run(repo: str, iters: int) -> None:
-    """The cases against the package under ``repo``, in this process."""
+def _run(repo: str, iters: int, trunks) -> None:
+    """The cases against the package under ``repo``, in this process;
+    ``trunks``: ResNet-18's and ResNet-50's trunk convs as
+    ``trunk_convs`` gives them."""
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
@@ -174,7 +227,159 @@ def _run(repo: str, iters: int) -> None:
         emit(f"K4 resnet18 18 convs {block} batch {batch}", total,
              " ".join(sorted(str(p) for p in plans)))
         library[f"K4 resnet18 18 convs {block} batch {batch}"] = lib_total
+
+    # ---- K2 ----
+    for depth, convs in trunks.items():
+        stages, total = {}, 0.0
+        for name, stage, *shape in convs:
+            if name.endswith(".c3"):
+                continue            # K7's in the served forward
+            fn = _k2_call(torch, ops, rng, dev, depth, name, *shape)
+            ms = _time_ms(torch, fn, iters)
+            stages[stage] = stages.get(stage, 0.0) + ms
+            total += ms
+            del fn
+        n = sum(not c[0].endswith(".c3") for c in convs)
+        for stage, ms in sorted(stages.items()):
+            emit(f"K2 resnet{depth} stage {stage} batch 128", ms)
+        emit(f"K2 resnet{depth} {n} convs batch 128", total)
+
+    # ---- K5 ----
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for BH in (8, 64):
+        q, k, v = (torch.randn((BH, 640, 64), device=dev) for _ in range(3))
+        emit(f"K5 BH {BH} T 640 causal", _time_ms(
+            torch, lambda: ops.flash_attention(q, k, v, causal=True), iters))
+        library[f"K5 BH {BH} T 640 causal"] = _time_ms(
+            torch, lambda: sdpa(q, k, v, is_causal=True), iters)
     print(json.dumps({"repo": repo, "library_ms": library}), flush=True)
+
+
+def _k2_call(torch, ops, rng, dev, depth, name, C, O, H, k, s):
+    """One K2 call at a trunk conv of batch 128, as the forward makes it:
+    ReLU on c1, the residual join on ResNet-18's c2; seeded int8 data."""
+    import numpy as np
+    cl = torch.channels_last
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device=dev)
+    x = i8((128, C, H, H)).contiguous(memory_format=cl)
+    w = ops.pack_weight(rng.integers(-128, 128, (O, C * k * k)).astype(
+        np.int8), C, k, dev)
+    bias = torch.randint(-3000, 3000, (O,), dtype=torch.int32, device=dev)
+    f = torch.full((O,), 0.011 / (C * k * k) ** 0.5, device=dev)
+    kw = dict(stride=s, padding=k // 2, relu=name.endswith(".c1"))
+    if depth == 18 and name.endswith(".c2"):
+        Ho = (H + 2 * (k // 2) - k) // s + 1
+        kw.update(residual=i8((128, O, Ho, Ho)).contiguous(memory_format=cl),
+                  res_scales=(0.0213, 0.0172, 0.0311))
+    return lambda: ops.conv2d_int8(x, w, bias, f, **kw)
+
+
+def _k2_tile_sweep(repo: str, iters: int, tiles, trunks) -> None:
+    """K2 at every trunk conv with each N tile of ``tiles`` forced."""
+    sys.path.insert(0, os.path.abspath(repo))
+    import numpy as np
+    import torch
+
+    from resnet_accel_tpu_torch import _kernels, ops
+
+    conv_mod = sys.modules["resnet_accel_tpu_torch.ops.conv"]
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _kernels.build()
+    rng = np.random.default_rng(0)
+    chosen = conv_mod.conv_tile_n
+    for depth, convs in trunks.items():
+        for name, stage, *shape in convs:
+            fn = _k2_call(torch, ops, rng, dev, depth, name, *shape)
+            C, O, _, k, _ = shape
+            row = {"repo": repo, "case": f"K2 resnet{depth} {name}",
+                   "shape": shape, "chosen": chosen(O, k * k * C)}
+            for bn in tiles:
+                conv_mod.conv_tile_n = lambda *_, bn=bn: bn
+                row[str(bn)] = _time_ms(torch, fn, iters)
+            conv_mod.conv_tile_n = chosen
+            print(json.dumps(row), flush=True)
+
+
+def _k5_inputs(torch, dev, BH):
+    return tuple(torch.randn((BH, 640, 64), device=dev) for _ in range(3))
+
+
+def _k5_chunk_sweep(repo: str, iters: int, chunks) -> None:
+    """K5 at the prefill with each chunk size of ``chunks`` forced."""
+    sys.path.insert(0, os.path.abspath(repo))
+    import torch
+
+    from resnet_accel_tpu_torch import _kernels, ops
+
+    fa_mod = sys.modules["resnet_accel_tpu_torch.ops.flash_attention"]
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _kernels.build()
+    limits = fa_mod.FA_MIN_CHUNK, fa_mod.FA_MAX_CHUNKS
+    for BH in (8, 64):
+        q, k, v = _k5_inputs(torch, dev, BH)
+        row = {"repo": repo, "case": f"K5 BH {BH} T 640 causal",
+               "chosen": fa_mod.flash_plan(640, 64, True)[0]}
+        for ct in chunks:
+            # ct = max(FA_MIN_CHUNK, ceil(nq / FA_MAX_CHUNKS)) = ct
+            fa_mod.FA_MIN_CHUNK, fa_mod.FA_MAX_CHUNKS = ct, 1 << 30
+            row[str(ct)] = _time_ms(torch, lambda: ops.flash_attention(
+                q, k, v, causal=True), iters)
+        fa_mod.FA_MIN_CHUNK, fa_mod.FA_MAX_CHUNKS = limits
+        print(json.dumps(row), flush=True)
+
+
+def _ablated(repo: str, name: str) -> str:
+    """A copy of ``repo``'s package with ablation ``name`` applied, under
+    its build directory; returns the copy's root."""
+    pkg = os.path.join(os.path.abspath(repo), "resnet_accel_tpu_torch")
+    root = os.path.join(pkg, "_build", f"ablate_{name}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(pkg, os.path.join(root, "resnet_accel_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for src, old, new in ABLATIONS[name]:
+        path = os.path.join(root, "resnet_accel_tpu_torch", "csrc", src)
+        with open(path) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise SystemExit(f"kernel_ab: ablation {name} no longer applies "
+                             f"to csrc/{src}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return root
+
+
+def _ablation_run(repo: str, iters: int, trunks, name: str) -> None:
+    """K2 at ResNet-18's 19 convs and K5 at the prefill, on ``repo``."""
+    sys.path.insert(0, os.path.abspath(repo))
+    import numpy as np
+    import torch
+
+    from resnet_accel_tpu_torch import _kernels, ops
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _kernels.build()
+    rng = np.random.default_rng(0)
+    for cname, stage, *shape in trunks[18]:
+        fn = _k2_call(torch, ops, rng, dev, 18, cname, *shape)
+        print(json.dumps({"ablation": name, "case": f"K2 resnet18 {cname}",
+                          "ms": _time_ms(torch, fn, iters)}), flush=True)
+    for BH in (8, 64):
+        q, k, v = _k5_inputs(torch, dev, BH)
+        err = (ops.flash_attention(q, k, v, causal=True)
+               - ops.flash_attention_plain(q, k, v, causal=True)).abs().max()
+        print(json.dumps({"ablation": name, "case": f"K5 BH {BH}",
+                          "ms": _time_ms(torch, lambda: ops.flash_attention(
+                              q, k, v, causal=True), iters),
+                          "max_abs_err": float(err)}), flush=True)
 
 
 def _split_sweep(repo: str, iters: int, splits) -> None:
@@ -263,19 +468,52 @@ def main(argv=None) -> int:
     ap.add_argument("--splits", default="",
                     help="e.g. 1,2,4,8: time K3 and K4 at each cluster "
                          "split instead of the A/B cases")
+    ap.add_argument("--k2-tiles", default="",
+                    help="e.g. 64,128: time K2 at each trunk conv with "
+                         "each N tile instead of the A/B cases")
+    ap.add_argument("--k5-chunks", default="",
+                    help="e.g. 1,2,4: time K5 with each chunk size instead")
+    ap.add_argument("--ablate", action="store_true",
+                    help="time K2 and K5 with parts knocked out instead")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--trunks", default="{}", help=argparse.SUPPRESS)
+    ap.add_argument("--ablation", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:
-        if args.splits:
+        trunks = {int(d): c for d, c in json.loads(args.trunks).items()}
+        if args.ablation:
+            _ablation_run(args.repo[0], args.iters, trunks, args.ablation)
+        elif args.k5_chunks:
+            _k5_chunk_sweep(args.repo[0], args.iters,
+                            [int(c) for c in args.k5_chunks.split(",")])
+        elif args.k2_tiles:
+            _k2_tile_sweep(args.repo[0], args.iters,
+                           [int(t) for t in args.k2_tiles.split(",")],
+                           trunks)
+        elif args.splits:
             _split_sweep(args.repo[0], args.iters,
                          [int(s) for s in args.splits.split(",")])
         else:
-            _run(args.repo[0], args.iters)
+            _run(args.repo[0], args.iters, trunks)
         return 0
-    for repo in args.repo:
+    # the trunk convs of this script's checkout, for every repo's run
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from resnet_accel_tpu_torch.models.resnet import trunk_convs
+    trunks = json.dumps({d: [list(c) for c in trunk_convs(d)]
+                         for d in (18, 50)})
+    if args.ablate:
+        runs = [(args.repo[0], "none")] + [
+            (_ablated(args.repo[0], name), name) for name in ABLATIONS]
+    else:
+        runs = [(repo, "") for repo in args.repo]
+    for repo, ablation in runs:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--one", "--repo", repo, "--iters",
-                               str(args.iters), "--splits", args.splits])
+                               str(args.iters), "--splits", args.splits,
+                               "--k2-tiles", args.k2_tiles,
+                               "--k5-chunks", args.k5_chunks,
+                               "--ablation", ablation, "--trunks", trunks])
         if proc.returncode != 0:
             return proc.returncode
     return 0

@@ -10,12 +10,13 @@ of them.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 
 from resnet_accel_tpu_torch.models.resnet18 import (
     BOTTLENECK_DEPTHS,
+    EXPANSION,
     STAGE_PLANS,
     ResNet18Int8,
     init_resnet18_fp32,
@@ -28,6 +29,49 @@ def _plan(depth: int):
         raise ValueError(
             f"unsupported depth {depth}; choose {sorted(STAGE_PLANS)}")
     return STAGE_PLANS[depth], depth in BOTTLENECK_DEPTHS
+
+
+class TrunkConv(NamedTuple):
+    """One trunk conv: its name in the forward (``b{block}.{c1,c2,c3,ds}``),
+    its stage (1-4), input channels, output channels, input height and
+    width, kernel and stride (padding kernel // 2)."""
+
+    name: str
+    stage: int
+    C: int
+    O: int
+    H: int
+    kernel: int
+    stride: int
+
+
+def trunk_convs(depth: int, hw: int = 56) -> List[TrunkConv]:
+    """Every trunk conv of the ResNet of ``depth`` whose stage 1 sees ``hw``
+    x ``hw`` (56 at 224 x 224), in the forward's order: c1, ds, c2 (and c3
+    in a bottleneck, which carries the stride on its 3x3 c2)."""
+    stages, bottleneck = _plan(depth)
+    convs: List[TrunkConv] = []
+    c_in, blk = 64, 0
+    for si, (out_c, blocks, stride) in enumerate(stages, start=1):
+        for b in range(blocks):
+            st = stride if b == 0 else 1
+            exp_c = out_c * EXPANSION if bottleneck else out_c
+            n = f"b{blk}"
+            if bottleneck:
+                convs.append(TrunkConv(f"{n}.c1", si, c_in, out_c, hw, 1, 1))
+            else:
+                convs.append(TrunkConv(f"{n}.c1", si, c_in, out_c, hw, 3, st))
+            if st != 1 or c_in != exp_c:
+                convs.append(TrunkConv(f"{n}.ds", si, c_in, exp_c, hw, 1, st))
+            if bottleneck:
+                convs.append(TrunkConv(f"{n}.c2", si, out_c, out_c, hw, 3, st))
+                convs.append(TrunkConv(f"{n}.c3", si, out_c, exp_c, hw // st,
+                                       1, 1))
+            else:
+                convs.append(TrunkConv(f"{n}.c2", si, out_c, out_c, hw // st,
+                                       3, 1))
+            c_in, hw, blk = exp_c, hw // st, blk + 1
+    return convs
 
 
 def init_resnet_fp32(

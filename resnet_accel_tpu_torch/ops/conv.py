@@ -19,6 +19,12 @@ reads activations and weights in channels-last memory order: pass ``x``,
 ``weight`` (OIHW) and ``residual`` as ``torch.channels_last`` tensors
 (:func:`pack_weight` does it for a weight once, at load); the output comes
 back channels-last, ready for the next conv.
+
+The kernel has two paths, chosen by shape alone (:func:`conv_plan`) and
+counted by ``_kernels.variant_counts()``: ``wgmma_tma``, the Hopper main
+loop (``csrc/sm90_gemm_s8.cuh``) with A read through a TMA map in im2col
+mode, where C % 32 == 0 (every trunk conv); ``mma_sync`` for the rest (the
+space-to-depth stem's 4x4 conv at C = 12, the MNIST conv1).
 """
 
 from __future__ import annotations
@@ -113,6 +119,24 @@ def stem_s2d_weights(weight2d: np.ndarray, in_c: int,
     return np.ascontiguousarray(w.reshape(O, -1))
 
 
+def conv_plan(C: int) -> str:
+    """K2's path for ``C`` input channels: ``wgmma_tma`` where a K stage
+    can be one tap's 32, 64 or 128 channel bytes (C % 32 == 0), else
+    ``mma_sync``."""
+    return "wgmma_tma" if C % 32 == 0 else "mma_sync"
+
+
+def conv_tile_n(O: int, K: int) -> int:
+    """The Hopper path's N tile (output channels a CTA) for O outputs and K
+    = kernel * kernel * C bytes a window: 128 where the walk is long (K >=
+    2048) and O >= 512, else 64.  On the H100 a 64-wide tile leaves through
+    a TMA store, cheaper than the 128-wide tile's fragment stores, and wins
+    wherever the epilogue weighs as much as the main loop: every trunk conv
+    but the long 3x3s of stage 4 and ResNet-50's 1x1 from 2048 channels
+    (``kernel_ab.py --k2-tiles``; PERF.md §6)."""
+    return 128 if K >= 2048 and O >= 512 else 64
+
+
 def conv2d_int8_plain(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -171,6 +195,7 @@ def conv2d_int8(
     if C % 4 or O % 4:
         raise ValueError(f"conv2d_int8 kernel needs C and O divisible by "
                          f"4, got C={C} O={O}")
+    path = conv_plan(C)
     H_out, W_out = _out_hw(H, W, K, stride, padding)
     pads = _pads(padding)
     dev = x.device
@@ -191,5 +216,7 @@ def conv2d_int8(
         factors.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         N, H, W, C, O, H_out, W_out, K, stride, pads[0][0], pads[1][0],
-        int(relu), s_main, s_res, s_out)
+        int(relu), 0 if path == "mma_sync" else conv_tile_n(O, K * K * C),
+        s_main, s_res, s_out,
+        variant=path)
     return out

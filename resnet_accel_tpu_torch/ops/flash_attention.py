@@ -10,11 +10,17 @@ with ``scale`` 1 / sqrt(dh) by default.  ``flash_attention`` launches the
 CUDA kernel ``csrc/flash_attention.cu`` for CUDA tensors, which never
 writes the [T, T] scores to device memory, and runs
 :func:`flash_attention_plain` for CPU tensors.
+
+The kernel cuts each 64-row q tile's visible key tiles into chunks and
+runs one CTA a (head, q tile, chunk); :func:`flash_plan` gives it the
+chunk size.  The plan depends on T and the mask alone, never on the
+number of heads, so a head's rows are the same bits in any batch.  Its
+products run on the tensor cores in split precision (3xTF32).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +66,28 @@ def flash_attention_plain(
     return torch.matmul(torch.softmax(s, dim=-1), v)
 
 
+#: q rows a CTA, keys a key tile, chunks a q tile at most, key tiles a
+#: chunk at least: the kernel's.
+FA_ROWS, FA_MAX_CHUNKS, FA_MIN_CHUNK = 64, 8, 2
+
+
+def flash_plan(T: int, dh: int, causal: bool) -> Tuple[int, int]:
+    """What the wrapper hands ``csrc/flash_attention.cu`` for T rows: (ct,
+    ws_floats).  Of nq tiles of 64 rows, q tile i sees key tiles [0, i + 1)
+    (causal) or [0, nq), cut into chunks of ct = max(2, ceil(nq / 8))
+    tiles; the kernel runs one CTA a (q tile, chunk) item.  ``ws_floats``
+    is a head's share of the partials' workspace: an acc tile at the
+    kernel's padded dh and 64 (m, l) pairs an item, or 0 where every q
+    tile has one chunk and writes its rows itself."""
+    nq = -(-T // FA_ROWS)
+    ct = max(FA_MIN_CHUNK, -(-nq // FA_MAX_CHUNKS))
+    chunks = [-(-(qt + 1 if causal else nq) // ct) for qt in range(nq)]
+    if max(chunks, default=0) <= 1:
+        return ct, 0
+    dh_pad = next(d for d in (16, 32, 64, 128) if dh <= d)
+    return ct, sum(chunks) * (FA_ROWS * dh_pad + 2 * FA_ROWS)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -87,7 +115,11 @@ def flash_attention(
     out = torch.empty_like(q)
     if H * T * dh == 0:
         return out
+    ct, ws_floats = flash_plan(T, dh, causal)
+    ws = torch.empty(H * ws_floats, dtype=torch.float32, device=dev) \
+        if ws_floats else None
     _kernels.launch("flash_attention", dev, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), H, T, dh, int(causal),
-                    float(scale))
+                    v.data_ptr(), out.data_ptr(),
+                    None if ws is None else ws.data_ptr(), H, T, dh,
+                    int(causal), ct, float(scale))
     return out

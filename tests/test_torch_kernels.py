@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from resnet_accel_tpu_torch import _kernels, ops
+from resnet_accel_tpu_torch.models.resnet import trunk_convs
+from resnet_accel_tpu_torch.ops import conv as conv_mod
 
 
 def _i8(rng, shape):
@@ -68,12 +70,83 @@ def test_conv(cuda, C, O, H, k, stride, join):
         Ho = (H + 2 * (k // 2) - k) // stride + 1
         r = _t(_i8(rng, (2, O, Ho, Ho)), cuda).contiguous(memory_format=cl)
         kw.update(residual=r, res_scales=(0.0213, 0.0172, 0.0311))
+    before = dict(_kernels.KERNELS["conv_int8"].variants)
     got = ops.conv2d_int8(x, w, bias, f, **kw)
     torch.cuda.synchronize()
+    _variant_launched("conv_int8", before,
+                      "wgmma_tma" if C % 32 == 0 else "mma_sync")
     want = ops.conv2d_int8_plain(x, w, bias, f, **kw)
     assert torch.equal(got, want)
     # the requant spans the int8 range, so the check is not on clipped 0s
     assert int(want.max()) - int(want.min()) > 100
+
+
+def _conv_args(cuda, N, C, O, H, k, stride, join, seed):
+    rng = np.random.default_rng(seed)
+    cl = torch.channels_last
+    x = _t(_i8(rng, (N, C, H, H)), cuda).contiguous(memory_format=cl)
+    w = ops.pack_weight(_i8(rng, (O, C * k * k)), C, k, cuda)
+    bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
+    f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(C * k * k)).astype(
+        np.float32), cuda)
+    kw = dict(stride=stride, padding=k // 2, relu=not join)
+    if join:
+        Ho = (H + 2 * (k // 2) - k) // stride + 1
+        r = _t(_i8(rng, (N, O, Ho, Ho)), cuda).contiguous(memory_format=cl)
+        kw.update(residual=r, res_scales=(0.0213, 0.0172, 0.0311))
+    return (x, w, bias, f), kw
+
+
+#: Every trunk conv shape of ResNet-18 and ResNet-50 at 224 x 224 (C, O,
+#: H, kernel, stride): the c1, c2, c3 and downsample convs.
+TRUNK_SHAPES = sorted({tuple(c[2:]) for d in (18, 50)
+                       for c in trunk_convs(d)})
+
+
+# K2 on its Hopper path (TMA in im2col mode, wgmma) at every trunk conv
+# shape, at batch 2 and 3 (a ragged last M tile), the join on and off.
+@pytest.mark.parametrize("C,O,H,k,stride", TRUNK_SHAPES)
+@pytest.mark.parametrize("N", [2, 3])
+@pytest.mark.parametrize("join", [False, True])
+def test_conv_trunk_shapes(cuda, C, O, H, k, stride, N, join):
+    args, kw = _conv_args(cuda, N, C, O, H, k, stride, join,
+                          C + O + H + k + N)
+    before = dict(_kernels.KERNELS["conv_int8"].variants)
+    got = ops.conv2d_int8(*args, **kw)
+    torch.cuda.synchronize()
+    _variant_launched("conv_int8", before, "wgmma_tma")
+    want = ops.conv2d_int8_plain(*args, **kw)
+    assert torch.equal(got, want)
+    assert int(want.max()) - int(want.min()) > 100
+
+
+# The served batch's tile counts: a persistent CTA walks many tiles, at
+# ResNet-18's stage-1 and stage-2 shapes (batch 32: 784 and 196 M tiles on
+# at most 132 CTAs a wave), the join on.
+@pytest.mark.parametrize("C,O,H,k,stride", [(64, 64, 56, 3, 1),
+                                            (128, 128, 28, 3, 1),
+                                            (64, 128, 56, 1, 2)])
+def test_conv_many_tiles_per_cta(cuda, C, O, H, k, stride):
+    args, kw = _conv_args(cuda, 32, C, O, H, k, stride, True, C + O + H)
+    before = dict(_kernels.KERNELS["conv_int8"].variants)
+    got = ops.conv2d_int8(*args, **kw)
+    torch.cuda.synchronize()
+    _variant_launched("conv_int8", before, "wgmma_tma")
+    assert torch.equal(got, ops.conv2d_int8_plain(*args, **kw))
+
+
+# Both N tiles of the Hopper path at ResNet-18's trunk shapes: the one
+# ``conv_tile_n`` picks and the other.
+@pytest.mark.parametrize("C,O,H,k,stride", sorted(
+    {tuple(c[2:]) for c in trunk_convs(18)}))
+@pytest.mark.parametrize("join", [False, True])
+def test_conv_other_tile(cuda, monkeypatch, C, O, H, k, stride, join):
+    other = 192 - conv_mod.conv_tile_n(O, k * k * C)
+    monkeypatch.setattr(conv_mod, "conv_tile_n", lambda *_: other)
+    args, kw = _conv_args(cuda, 3, C, O, H, k, stride, join, C + O + H)
+    got = ops.conv2d_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.conv2d_int8_plain(*args, **kw))
 
 
 def test_conv_saturated(cuda):
@@ -88,8 +161,10 @@ def test_conv_saturated(cuda):
     bias = _t(rng.integers(-3000, 3000, O).astype(np.int32), cuda)
     f = _t((rng.uniform(0.5, 1.5, O) * 100 / 2**25).astype(np.float32),
            cuda)
+    before = dict(_kernels.KERNELS["conv_int8"].variants)
     got = ops.conv2d_int8(x, w, bias, f, relu=True)
     torch.cuda.synchronize()
+    _variant_launched("conv_int8", before, "wgmma_tma")
     assert torch.equal(got, ops.conv2d_int8_plain(x, w, bias, f, relu=True))
 
 
@@ -441,7 +516,7 @@ def test_expand_add_refuses_nchw_residual(cuda):
 @pytest.mark.parametrize("dh", [16, 64, 128])
 @pytest.mark.parametrize("T", [1, 63, 640, 1000])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("BH", [8, 64])
+@pytest.mark.parametrize("BH", [1, 8, 24, 64])
 def test_flash_attention(cuda, dh, T, causal, BH):
     gen = torch.Generator(device=cuda).manual_seed(dh + T + BH)
     q, k, v = (torch.randn((BH, T, dh), generator=gen, device=cuda)
@@ -452,6 +527,13 @@ def test_flash_attention(cuda, dh, T, causal, BH):
     assert _kernels.launch_counts()["flash_attention"] == before + 1
     want = ops.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.isfinite(got).all()
+    # each head's rows, run alone, are the same bits (the chunk plan does
+    # not depend on BH)
+    for h in range(BH):
+        alone = ops.flash_attention(q[h:h + 1], k[h:h + 1], v[h:h + 1],
+                                    causal=causal)
+        assert torch.equal(alone[0], got[h]), h
 
 
 def test_flash_attention_refuses_wide_heads(cuda):
@@ -663,8 +745,10 @@ def test_conv_per_side_padding(cuda, N, C, O, H, W, k, pad):
     f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(C * k * k)).astype(
         np.float32), cuda)
     kw = dict(padding=pad, relu=True)
+    before = dict(_kernels.KERNELS["conv_int8"].variants)
     got = ops.conv2d_int8(x, w, bias, f, **kw)
     torch.cuda.synchronize()
+    _variant_launched("conv_int8", before, "mma_sync")
     want = ops.conv2d_int8_plain(x, w, bias, f, **kw)
     (t, b), (l, r) = pad
     assert want.shape[2:] == (H + t + b - k + 1, W + l + r - k + 1)
