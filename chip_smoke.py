@@ -129,7 +129,8 @@ result line) without them.  Phases, each fatal on failure:
    its plain version and the dense K2, bit for bit.
 23. The probes (``resnet_accel_tpu_torch/probes.py``): ``mma_s8_rate`` at
    K1's and K2's GEMM shapes, ``chain_rate`` (int32 max, f32 requant) and
-   K1's tile with stages knocked out, each on a line of its own.
+   K10's scalar tile on fp32 input with stages knocked out (whole, it
+   equals K1), timed beside K10, each on a line of its own.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
 the served paths; ms the kernel's time summed over the shapes of the
@@ -495,7 +496,7 @@ def main() -> None:
             return (x.numel() * 4 + st.weight.numel() + 8 * 64 + out.numel(),
                     2 * N * 64 * Hc * Wc * st.weight[0].numel(), "int8")
         return check("stem_fused", "stem",
-                     lambda: stem_conv_pool(x, st.weight, st.bias,
+                     lambda: stem_conv_pool(x, m.stem_k1_w, st.bias,
                                             st.factors, m.s_input),
                      lambda: stem_conv_pool_plain(x, st.weight, st.bias,
                                                   st.factors, m.s_input),
@@ -718,7 +719,7 @@ def main() -> None:
     im2col_total = dense_total = 0.0
     k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
-        a = stem_conv_pool(x, smod.stem.weight, smod.stem.bias,
+        a = stem_conv_pool(x, smod.stem_k1_w, smod.stem.bias,
                            smod.stem.factors, smod.s_input)
         for i, (convs, dconvs, rs) in enumerate(
                 zip(smod.blocks, dmod.blocks, smod.res_scales)):
@@ -1185,7 +1186,7 @@ def main() -> None:
                         lambda: stem_conv_pool_int8_plain(*args),
                         f"q{list(q0.shape)} int8", work, timed=pool)
             if pool and not torch.equal(k10, stem_conv_pool(
-                    x0, st.weight, st.bias, st.factors, mod.s_input)):
+                    x0, mod.stem_k1_w, st.bias, st.factors, mod.s_input)):
                 fail("K10 of the quantized images differs from K1 of the "
                      "fp32 ones")
     print(f"K10 pooled equals K1 on the fp32 images it came from  ({label})")
@@ -1271,7 +1272,8 @@ def main() -> None:
         pre = conv2d_int8(q12, w4, st.bias, st.factors, padding=pad,
                           relu=True)
         route = maxpool2d_int8(pre, 3, 2, padding=1)
-        k1 = stem_conv_pool(x0, st.weight, st.bias, st.factors, s_in)
+        k1_w = mod.stem_k1_w
+        k1 = stem_conv_pool(x0, k1_w, st.bias, st.factors, s_in)
         if not torch.equal(route, k1):
             fail("K6 -> K2 4x4 -> max pool differs from K1")
         parts = {
@@ -1280,7 +1282,7 @@ def main() -> None:
                 q12, w4, st.bias, st.factors, padding=pad, relu=True), 10),
             "max pool": time_ms(lambda: maxpool2d_int8(
                 pre, 3, 2, padding=1).contiguous(memory_format=cl), 10),
-            "K1": time_ms(lambda: stem_conv_pool(x0, st.weight, st.bias,
+            "K1": time_ms(lambda: stem_conv_pool(x0, k1_w, st.bias,
                                                  st.factors, s_in), 10)}
 
         def conv_work(out):
@@ -1441,7 +1443,7 @@ def main() -> None:
         m = ResNet18Int8Module(model_, dev).eval()
         tot = plain_tot = bound_tot = lib_tot = 0.0
         with torch.inference_mode():
-            a = stem_conv_pool(x8, m.stem.weight, m.stem.bias,
+            a = stem_conv_pool(x8, m.stem_k1_w, m.stem.bias,
                                m.stem.factors, m.s_input)
             for i, (convs, rs) in enumerate(zip(m.blocks, m.res_scales)):
                 def run(tag, inp, **join):
@@ -1539,19 +1541,25 @@ def main() -> None:
             r = probes.chain_rate(kind, dev, time_ms)
             print(f"probe chain_rate {kind}: {r['steps_per_s'] / 1e12:.3f} "
                   f"T steps/s over {r['threads']} threads  ({label})")
+        # K10's scalar tile (stem_tile.cuh) on K1's fp32 input: equal to
+        # K1's output, timed beside K10, which runs the same tile
         stem_args = (x0, st.weight, st.bias, st.factors, s_in)
         if not torch.equal(probes.stem_ablation(*stem_args, "full"), k1):
-            fail("K1's tile with no stage knocked out differs from K1")
+            fail("K10's scalar tile with no stage knocked out differs from "
+                 "K1")
+        k10_ms = time_ms(lambda: stem_conv_pool_int8(
+            q0, st.weight, st.bias, st.factors, pool=True), 10)
         abl = {mode: time_ms(lambda: probes.stem_ablation(*stem_args, mode),
                              10) for mode in probes.STEM_MODES}
         for mode, ms in abl.items():
-            print(f"probe K1 tile {mode:10s}: {ms:.4f} ms at batch {BATCH} "
-                  f"(K1 {parts['K1']:.4f} ms)  ({label})")
-    print(f"K1 split at batch {BATCH}: input loads + quantize (full - "
-          f"no_loads) {abl['full'] - abl['no_loads']:.4f} ms, dots + pool "
-          f"(full - stage_only) {abl['full'] - abl['stage_only']:.4f} ms, "
-          f"pool epilogue (full - no_pool) "
-          f"{abl['full'] - abl['no_pool']:.4f} ms, staging alone "
+            print(f"probe K10 scalar tile {mode:10s}: {ms:.4f} ms at batch "
+                  f"{BATCH}, fp32 input (K10 pooled {k10_ms:.4f} ms)  "
+                  f"({label})")
+    print(f"K10 scalar tile split at batch {BATCH}: input loads + quantize "
+          f"(full - no_loads) {abl['full'] - abl['no_loads']:.4f} ms, dots "
+          f"+ pool (full - stage_only) "
+          f"{abl['full'] - abl['stage_only']:.4f} ms, pool epilogue (full - "
+          f"no_pool) {abl['full'] - abl['no_pool']:.4f} ms, staging alone "
           f"{abl['stage_only']:.4f} ms  ({label})")
 
     total = {name: launches[name] + launches50[name] + slaunches[name]

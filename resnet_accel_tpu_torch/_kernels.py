@@ -69,7 +69,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("stem_fused", "stem_fused_launch",
                "resnet_accel_tpu_torch/csrc/stem_fused.cu",
                "resnet_accel_tpu/ops/stem_fused.py:115",
-               [_P] * 5 + [_I] * 5 + [_F, _P]),
+               [_P] * 5 + [_I] * 6 + [_F, _P]),
         Kernel("conv_int8", "conv_int8_launch",
                "resnet_accel_tpu_torch/csrc/conv_int8.cu",
                "resnet_accel_tpu/ops/conv_bm.py:419",

@@ -1,11 +1,12 @@
-// The ImageNet stem's tile, shared by K1 (stem_fused.cu, fp32 input
-// quantized on load) and K10 (stem_int8.cu, int8 input): 7x7/s2/p3 conv on
-// 3 channels, bias, ReLU, then either the 3x3/s2/p1 max pool on the int32
+// The ImageNet stem's scalar tile, run by K10 (stem_int8.cu, int8 input)
+// and by the timing probes of probes.cu (fp32 input quantized on load; K1,
+// stem_fused.cu, has a tensor-core tile of its own): 7x7/s2/p3 conv on 3
+// channels, bias, ReLU, then either the 3x3/s2/p1 max pool on the int32
 // accumulators and one requant of the pooled value (kPool), or a requant
 // of every conv output.
 //
 // Per output (image n, row, col, channel o):
-//   xq   = the input value (K1: clip(rint(x / scale), -128, 127))
+//   xq   = the input value (fp32: clip(rint(x / scale), -128, 127))
 //   conv = relu(sum_{c,kh,kw} xq * w[o,c,kh,kw] + bias[o])  (int32)
 //   out  = requant(max over the 3x3/s2/p1 window of conv)  (kPool)
 //          requant(conv)                                    (otherwise)
@@ -30,8 +31,9 @@
 // output channels, so weight reads are broadcasts.
 //
 // kAblate knocks stages out of the pooled tile for the timing probes of
-// probes.cu (their outputs are not the stem's): K1 and K10 instantiate
-// kFull, for which every ``if constexpr`` below keeps the code as it is.
+// probes.cu (their outputs are not the stem's): K10 and the probes' full
+// tile instantiate kFull, for which every ``if constexpr`` below keeps the
+// code as it is.
 #pragma once
 
 #include <cuda_runtime.h>

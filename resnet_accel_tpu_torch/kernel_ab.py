@@ -1,8 +1,8 @@
-"""K2's, K3's, K4's and K5's times at the served shapes, for an A/B of two
-checkouts of this package in one call on the card.
+"""K1's, K2's, K3's, K4's and K5's times at the served shapes, for an A/B
+of two checkouts of this package in one call on the card.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo P --repo C --repo C \\
-        --repo P [--iters 20]
+        --repo P [--iters 20] [--cases K1,K2]
 
 Each ``--repo`` is the root of a checkout (the directory that holds
 ``resnet_accel_tpu_torch/``).  Each runs in a process of its own, in the
@@ -15,7 +15,11 @@ time (cuBLAS's dense int8 GEMM, plus the bias for K3) where cuBLAS takes
 the shape (and SDPA's for K5).  The data are seeded: int8 activations and
 weights, block masks drawn at the stated sparsity, normal q, k, v.
 
-The cases: K3 at ResNet-18's and ResNet-50's fc (M 128, K 512 and 2048, N
+The cases (``--cases`` keeps those whose name starts with one of the
+prefixes given): K1 at ResNet-18's stem, batch 128, 224 x 224 (normal
+fp32 images, int8 weights; the packed weight where the checkout has
+``pack_stem_weight``, as its model serves it); K3 at ResNet-18's and
+ResNet-50's fc (M 128, K 512 and 2048, N
 1000, int32) and the MNIST CNN's dense fc1 (K 9216, N 128, requant and
 ReLU) and fc2 (K 128, N 10); K4 at 128 x 128 blocks at the MNIST fc1
 (0.9), the GEMM sweep's M 512, N = K = 2048 and 4096 (0.7, 0.9) and the
@@ -48,10 +52,11 @@ chunk size (key tiles a CTA) forced in place of ``flash_plan``'s.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo C --ablate
 
-times K2 at ResNet-18's 19 convs and K5 at the prefill on the checkout
-and on copies of its package with one part of a kernel knocked out at
-compile time (``ABLATIONS``; the copies are built under the checkout's
-``resnet_accel_tpu_torch/_build/``): what the part costs, not a result.
+times K1 at its batch-128 case, K2 at ResNet-18's 19 convs and K5 at the
+prefill on the checkout and on copies of its package with one part of a
+kernel knocked out at compile time (``ABLATIONS``; the copies are built
+under the checkout's ``resnet_accel_tpu_torch/_build/``): what the part
+costs, not a result.  With ``--cases K1`` only K1 and its ablations run.
 Needs a card; exits non-zero without one.
 """
 
@@ -67,6 +72,26 @@ import time
 #: Parts of a kernel knocked out for ``--ablate``: (source under csrc/,
 #: text, replacement) edits, each of which must apply once.
 ABLATIONS = {
+    # K1's GEMM steps become an XOR of their operands: the A loads and the
+    # B registers stay, the tensor-core work goes
+    "k1_no_mma": [
+        ("stem_fused.cu",
+         "for (int j = 0; j < 4; ++j) mma_s8(acc[j], a, b[j][s][0], "
+         "b[j][s][1]);",
+         "for (int j = 0; j < 4; ++j) acc[j][0] ^= a[0] ^ a[1] ^ a[2] ^ "
+         "a[3] ^ b[j][s][0] ^ b[j][s][1];"),
+    ],
+    # K1's pool reads the centre column of each conv row only: a third of
+    # its shared-memory reads
+    "k1_pool_one_col": [
+        ("stem_fused.cu", "for (int dc = 0; dc < 3; ++dc)",
+         "for (int dc = 1; dc < 2; ++dc)"),
+    ],
+    # K1 stages a pattern in place of the input's loads (quantize stays)
+    "k1_no_loads": [
+        ("stem_fused.cu", "? __ldg(xp + (d / 2) * W + d % 2)",
+         "? static_cast<float>((e + d) & 15)"),
+    ],
     # K2 sums and loads as it does, but stores nothing: its main loop alone
     "k2_no_epilogue": [
         ("sm90_gemm_s8.cuh",
@@ -134,10 +159,11 @@ def _host_ms(torch, fn):
     return (t1 - t0) * 1e3
 
 
-def _run(repo: str, iters: int, trunks) -> None:
+def _run(repo: str, iters: int, trunks, cases=()) -> None:
     """The cases against the package under ``repo``, in this process;
     ``trunks``: ResNet-18's and ResNet-50's trunk convs as
-    ``trunk_convs`` gives them."""
+    ``trunk_convs`` gives them; ``cases``: name prefixes to keep (all if
+    empty)."""
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
@@ -163,11 +189,20 @@ def _run(repo: str, iters: int, trunks) -> None:
         p = getattr(ops, fn, None)     # a checkout before the plans: None
         return None if p is None else str(p(*args))
 
+    def want(kernel):
+        return not cases or any(kernel.startswith(c) for c in cases)
+
+    # ---- K1 ----
+    if want("K1"):
+        emit(K1_CASE, _time_ms(torch, _k1_call(torch, ops, dev), iters),
+             plan_of("stem_plan", 128, 224, 224, _kernels.sm_count(dev)))
+
     # ---- K3 ----
     for case, M, K, N, requant in (("fc512", 128, 512, 1000, False),
                                    ("fc2048", 128, 2048, 1000, False),
                                    ("mnist_fc1", 128, 9216, 128, True),
-                                   ("mnist_fc2", 128, 128, 10, False)):
+                                   ("mnist_fc2", 128, 128, 10, False)
+                                   ) if want("K3") else ():
         a, w = i8((M, K)), i8((N, K))
         bias = torch.randint(-3000, 3000, (N,), dtype=torch.int32,
                              device=dev)
@@ -201,18 +236,20 @@ def _run(repo: str, iters: int, trunks) -> None:
             library[case] = _time_ms(torch, lambda: torch._int_mm(A, wt),
                                      iters)
 
-    A = i8((128, 9216))
-    for block in (128, 14):
+    for block in (128, 14) if want("K4") else ():
+        A = i8((128, 9216))
         W, pk = masked(128, 9216, block, 0.9, mask_block=128)
         k4(f"K4 mnist_fc1 {block}", A, pk, W)
-    for n, s in ((2048, 0.7), (2048, 0.9), (4096, 0.7), (4096, 0.9)):
+    for n, s in ((2048, 0.7), (2048, 0.9), (4096, 0.7),
+                 (4096, 0.9)) if want("K4") else ():
         A = i8((512, n))
         W, pk = masked(n, n, 128, s)
         k4(f"K4 gemm{n} {s} 128", A, pk, W)
-    A = i8((512, 2048))
-    W, pk = masked(2048, 2048, 14, 0.7)
-    k4("K4 gemm2048 0.7 14", A, pk, W)
-    for block, batch in ((128, 128), (14, 8)):
+    if want("K4"):
+        A = i8((512, 2048))
+        W, pk = masked(2048, 2048, 14, 0.7)
+        k4("K4 gemm2048 0.7 14", A, pk, W)
+    for block, batch in ((128, 128), (14, 8)) if want("K4") else ():
         total = lib_total = 0.0
         plans = set()
         for pix, K, N in RESNET18_SPARSE_CONVS:
@@ -229,7 +266,7 @@ def _run(repo: str, iters: int, trunks) -> None:
         library[f"K4 resnet18 18 convs {block} batch {batch}"] = lib_total
 
     # ---- K2 ----
-    for depth, convs in trunks.items():
+    for depth, convs in trunks.items() if want("K2") else ():
         stages, total = {}, 0.0
         for name, stage, *shape in convs:
             if name.endswith(".c3"):
@@ -247,13 +284,33 @@ def _run(repo: str, iters: int, trunks) -> None:
     # ---- K5 ----
     sdpa = torch.nn.functional.scaled_dot_product_attention
     torch.backends.cuda.matmul.allow_tf32 = False
-    for BH in (8, 64):
+    for BH in (8, 64) if want("K5") else ():
         q, k, v = (torch.randn((BH, 640, 64), device=dev) for _ in range(3))
         emit(f"K5 BH {BH} T 640 causal", _time_ms(
             torch, lambda: ops.flash_attention(q, k, v, causal=True), iters))
         library[f"K5 BH {BH} T 640 causal"] = _time_ms(
             torch, lambda: sdpa(q, k, v, is_causal=True), iters)
     print(json.dumps({"repo": repo, "library_ms": library}), flush=True)
+
+
+K1_CASE = "K1 stem batch 128 224x224"
+
+
+def _k1_call(torch, ops, dev):
+    """One K1 call at ResNet-18's stem, batch 128, 224 x 224: seeded normal
+    images and int8 weights, packed where the checkout packs them."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(0, 1, (128, 3, 224, 224)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, (64, 3, 7, 7)).astype(
+        np.int8)).to(dev)
+    pack = getattr(ops, "pack_stem_weight", None)       # older checkouts
+    wk = w if pack is None else pack(w)
+    bias = torch.randint(-5000, 5000, (64,), dtype=torch.int32, device=dev)
+    f = torch.full((64,), 4e-3, device=dev)
+    scale = float(x.abs().max()) / 127.0
+    return lambda: ops.stem_conv_pool(x, wk, bias, f, scale)
 
 
 def _k2_call(torch, ops, rng, dev, depth, name, C, O, H, k, s):
@@ -355,8 +412,10 @@ def _ablated(repo: str, name: str) -> str:
     return root
 
 
-def _ablation_run(repo: str, iters: int, trunks, name: str) -> None:
-    """K2 at ResNet-18's 19 convs and K5 at the prefill, on ``repo``."""
+def _ablation_run(repo: str, iters: int, trunks, name: str,
+                  cases=()) -> None:
+    """K1 at batch 128, K2 at ResNet-18's 19 convs and K5 at the prefill,
+    on ``repo``; ``cases`` as :func:`_run` takes them."""
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
@@ -368,11 +427,18 @@ def _ablation_run(repo: str, iters: int, trunks, name: str) -> None:
     dev = torch.device("cuda", torch.cuda.current_device())
     _kernels.build()
     rng = np.random.default_rng(0)
-    for cname, stage, *shape in trunks[18]:
+
+    def want(kernel):
+        return not cases or any(kernel.startswith(c) for c in cases)
+    if want("K1"):
+        print(json.dumps({"ablation": name, "case": K1_CASE,
+                          "ms": _time_ms(torch, _k1_call(torch, ops, dev),
+                                         iters)}), flush=True)
+    for cname, stage, *shape in trunks[18] if want("K2") else ():
         fn = _k2_call(torch, ops, rng, dev, 18, cname, *shape)
         print(json.dumps({"ablation": name, "case": f"K2 resnet18 {cname}",
                           "ms": _time_ms(torch, fn, iters)}), flush=True)
-    for BH in (8, 64):
+    for BH in (8, 64) if want("K5") else ():
         q, k, v = _k5_inputs(torch, dev, BH)
         err = (ops.flash_attention(q, k, v, causal=True)
                - ops.flash_attention_plain(q, k, v, causal=True)).abs().max()
@@ -465,6 +531,9 @@ def main(argv=None) -> int:
     ap.add_argument("--repo", action="append", required=True,
                     help="a checkout's root; repeat, in the order to run")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--cases", default="",
+                    help="e.g. K1,K2: run only the A/B cases whose name "
+                         "starts with one of these")
     ap.add_argument("--splits", default="",
                     help="e.g. 1,2,4,8: time K3 and K4 at each cluster "
                          "split instead of the A/B cases")
@@ -481,8 +550,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.one:
         trunks = {int(d): c for d, c in json.loads(args.trunks).items()}
+        cases = [c for c in args.cases.split(",") if c]
         if args.ablation:
-            _ablation_run(args.repo[0], args.iters, trunks, args.ablation)
+            _ablation_run(args.repo[0], args.iters, trunks, args.ablation,
+                          cases)
         elif args.k5_chunks:
             _k5_chunk_sweep(args.repo[0], args.iters,
                             [int(c) for c in args.k5_chunks.split(",")])
@@ -494,7 +565,7 @@ def main(argv=None) -> int:
             _split_sweep(args.repo[0], args.iters,
                          [int(s) for s in args.splits.split(",")])
         else:
-            _run(args.repo[0], args.iters, trunks)
+            _run(args.repo[0], args.iters, trunks, cases)
         return 0
     # the trunk convs of this script's checkout, for every repo's run
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -503,8 +574,10 @@ def main(argv=None) -> int:
     trunks = json.dumps({d: [list(c) for c in trunk_convs(d)]
                          for d in (18, 50)})
     if args.ablate:
+        kernels = [c.lower() for c in args.cases.split(",") if c]
         runs = [(args.repo[0], "none")] + [
-            (_ablated(args.repo[0], name), name) for name in ABLATIONS]
+            (_ablated(args.repo[0], name), name) for name in ABLATIONS
+            if not kernels or name.split("_")[0] in kernels]
     else:
         runs = [(repo, "") for repo in args.repo]
     for repo, ablation in runs:
@@ -513,6 +586,7 @@ def main(argv=None) -> int:
                                str(args.iters), "--splits", args.splits,
                                "--k2-tiles", args.k2_tiles,
                                "--k5-chunks", args.k5_chunks,
+                               "--cases", args.cases,
                                "--ablation", ablation, "--trunks", trunks])
         if proc.returncode != 0:
             return proc.returncode

@@ -72,6 +72,7 @@ from resnet_accel_tpu_torch.ops import (
     matmul_int8_plain,
     maxpool2d_int8,
     pack_bsr,
+    pack_stem_weight,
     pack_weight,
     quantize_input,
     quantize_s2d,
@@ -700,6 +701,7 @@ class ResNet18Int8Module(nn.Module):
     bit-exact with the golden ``forward_golden``.
 
     Weights are uploaded once, here, in the layouts the kernels read: the
+    ImageNet stem's as OIHW (K10) and packed for K1 (``stem_k1_w``), the
     trunk's conv weights channels-last (a 1x1 c3's is then [O, C]
     row-major, as K7 reads it), the fc weight as [512 or 2048, classes].
 
@@ -727,6 +729,10 @@ class ResNet18Int8Module(nn.Module):
             stem_w = torch.from_numpy(np.ascontiguousarray(
                 stem.w2d.reshape(-1, stem.in_channels, 7, 7))).to(device)
         self.stem = Int8Conv(stem, stem_w, device)
+        # K1's [64, 192] B operand, packed once here (K10 reads the OIHW
+        # stem.weight)
+        self.register_buffer("stem_k1_w", None if self.small_input
+                             else pack_stem_weight(stem_w))
         self.stem_s2d_w = None
         if not (self.small_input or stem_fused):
             # [64, 4C, 4, 4]: the 7x7/s2/p3 weight regrouped for the
@@ -786,7 +792,7 @@ class ResNet18Int8Module(nn.Module):
         elif int8_in:
             a = stem_int8(x, st.weight, st.bias, st.factors)
         else:
-            a = stem(x, st.weight, st.bias, st.factors, self.s_input)
+            a = stem(x, self.stem_k1_w, st.bias, st.factors, self.s_input)
         for convs, rs in zip(self.blocks, self.res_scales):
             y = convs["c1"](a, conv, bsr)
             r = convs["ds"](a, conv, bsr) if "ds" in convs else a

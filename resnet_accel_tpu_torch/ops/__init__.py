@@ -62,8 +62,10 @@ from resnet_accel_tpu_torch.ops.stem_pack import (
     transpose_taps,
 )
 from resnet_accel_tpu_torch.ops.stem_fused import (
+    pack_stem_weight,
     stem_conv_pool,
     stem_conv_pool_plain,
+    stem_plan,
 )
 
 __all__ = [
@@ -91,6 +93,7 @@ __all__ = [
     "maxpool2d_int8",
     "pack_bsr",
     "pack_gather_bsr",
+    "pack_stem_weight",
     "pack_weight",
     "quantize_input",
     "quantize_s2d",
@@ -106,6 +109,7 @@ __all__ = [
     "stem_conv_pool_int8",
     "stem_conv_pool_int8_plain",
     "stem_conv_pool_plain",
+    "stem_plan",
     "stem_s2d_weights",
     "transpose_taps",
 ]

@@ -9,9 +9,9 @@ Both map int8 images [N, 3, H, W] to int8 [N, 64, H', W'] as
     7x7/s2/p3 conv + bias + ReLU + requant [-> 3x3/s2/p1 max pool]
 
 which is K1 (``ops/stem_fused.py``) without its quantize: K10 of the
-quantized images equals K1 of the fp32 ones.  As in K1 the weight stays
-the plain [64, 3, 7, 7] OIHW tensor (the TPU's space-to-depth regrouping
-is bit-identical and not needed), and the output is channels-last.
+quantized images equals K1 of the fp32 ones.  K10 runs the scalar tile of
+``csrc/stem_tile.cuh`` on the plain [64, 3, 7, 7] OIHW weight (K1 runs a
+tensor-core tile on a packed weight); the output is channels-last.
 
 ``fused_stem_pool`` is the JAX function's port: fp32 images, quantized by
 the elementwise ``quantize_input`` outside the kernel as the JAX package

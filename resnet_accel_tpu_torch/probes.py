@@ -15,8 +15,9 @@ ms`` the caller gives (``chip_smoke.py``'s CUDA-event timer):
 - :func:`chain_rate` (``stem_dot_probe.py::vpu_kernel``): dependent
   chains of int32 ``max`` and of the f32 requant step, steps/s.
 - :func:`stem_ablation` (``stem_stage_probe.py::main``,
-  ``stem_ring_probe.py``'s ``epilogue_cost`` and ``staging_cost``): K1's
-  tile with stages knocked out, on K1's inputs.
+  ``stem_ring_probe.py``'s ``epilogue_cost`` and ``staging_cost``): the
+  scalar stem tile of ``csrc/stem_tile.cuh`` (K10's) on K1's fp32 inputs,
+  with stages knocked out.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 
 #: The tile's width (N) of the dot probe.
 MMA_N = 64
-#: K1's stages a probe keeps (``stem::Ablate`` in ``csrc/stem_tile.cuh``).
+#: The scalar tile's stages a probe keeps (``stem::Ablate`` in
+#: ``csrc/stem_tile.cuh``).
 STEM_MODES = {"full": 0, "stage_only": 1, "no_loads": 2, "no_pool": 3}
 #: Chain kinds of :func:`chain`: int32 ``v = max(v, u + c)``; the f32
 #: requant step ``clamp(rint(f * m), lo, hi)``.
@@ -118,9 +120,9 @@ def chain_plain(x: torch.Tensor, n: int, kind: str, c: int = -1,
 def stem_ablation(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   factors: torch.Tensor, scale: float,
                   mode: str) -> torch.Tensor:
-    """K1's launch (``stem_conv_pool``'s arguments) with the stages of
-    ``mode`` (:data:`STEM_MODES`) only; "full" computes K1's output, the
-    others are for their time alone."""
+    """The scalar stem tile on ``stem_conv_pool``'s arguments (the OIHW
+    weight) with the stages of ``mode`` (:data:`STEM_MODES`) only; "full"
+    computes K1's output, the others are for their time alone."""
     _cuda(x, "stem_ablation")
     N, _, H, W = x.shape
     Hp, Wp = stem_out_hw(H, W)

@@ -35,21 +35,51 @@ def _t(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-@pytest.mark.parametrize("N,H,W", [(2, 224, 224), (3, 37, 50), (1, 16, 16)])
+def _stem_k1(x, w, bias, f, scale):
+    """K1 on the OIHW weight and on its packed form, each one launch: both
+    the plain version's bits."""
+    args = (bias, f, scale)
+    want = ops.stem_conv_pool_plain(x, w, *args)
+    for weight in (w, ops.pack_stem_weight(w)):
+        before = _kernels.launch_counts()["stem_fused"]
+        got = ops.stem_conv_pool(x, weight, *args)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["stem_fused"] == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want)
+
+
+# K1 at ResNet-18's stem, at ragged and odd sizes (the last tile short or
+# full, conv outputs of odd size) and at a batch of 12 at 224 x 224: 672
+# tiles, so every persistent CTA walks more than one.
+@pytest.mark.parametrize("N,H,W", [(2, 224, 224), (3, 37, 50), (1, 16, 16),
+                                   (1, 28, 16), (1, 31, 29), (12, 224, 224)])
 def test_stem(cuda, N, H, W):
     rng = np.random.default_rng(H)
     x = rng.normal(0, 1, (N, 3, H, W)).astype(np.float32)
     w = _i8(rng, (64, 3, 7, 7))
     bias = rng.integers(-5000, 5000, 64).astype(np.int32)
     f = rng.uniform(0.001, 0.01, 64).astype(np.float32)
-    args = (_t(x, cuda), _t(w, cuda), _t(bias, cuda), _t(f, cuda),
-            float(np.abs(x).max() / 127.0))
-    before = _kernels.launch_counts()["stem_fused"]
-    got = ops.stem_conv_pool(*args)
-    torch.cuda.synchronize()
-    assert _kernels.launch_counts()["stem_fused"] == before + 1
-    assert got.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(got, ops.stem_conv_pool_plain(*args))
+    if N == 12:
+        tiles, ctas = ops.stem_plan(N, H, W, _kernels.sm_count(cuda))
+        assert tiles > 2 * ctas
+    _stem_k1(_t(x, cuda), _t(w, cuda), _t(bias, cuda), _t(f, cuda),
+             float(np.abs(x).max() / 127.0))
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 64, 48), (1, 31, 29)])
+def test_stem_saturated(cuda, N, H, W):
+    """Inputs that quantize to -128 and 127 (and past them) against weights
+    of -128, 127 and -127: the largest sums the int8 GEMM can form."""
+    rng = np.random.default_rng(W)
+    scale = 0.01
+    x = rng.choice(np.float32([-1e6, -1.28, 1.27, 1e6, 0.0]),
+                   (N, 3, H, W)).astype(np.float32)
+    w = rng.choice(np.int8([-128, 127, -127]), (64, 3, 7, 7)).astype(np.int8)
+    bias = rng.integers(-5000, 5000, 64).astype(np.int32)
+    # |acc| <= 147 * 128 * 128: factors that keep the requant in range
+    f = rng.uniform(2e-5, 6e-5, 64).astype(np.float32)
+    _stem_k1(_t(x, cuda), _t(w, cuda), _t(bias, cuda), _t(f, cuda), scale)
 
 
 @pytest.mark.parametrize("C,O,H,k,stride", [
