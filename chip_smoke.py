@@ -116,21 +116,34 @@ result line) without them.  Phases, each fatal on failure:
    images to the plain path on the CPU; a batch of 100 and an int8 batch
    on the route must equal the default route.  Prints both routes'
    img/s, in the order default, s2d, s2d, default.
-21. K4 at 14 x 14 blocks, on its ``mma_sync`` path (the served runs
-   must launch no other): the MNIST CNN's fc1 (against its plain version;
-   the engine's logits against the plain path on the card and the CPU,
-   counts reset just before), the GEMM M = 512, N = K = 2048 at 0.7 (with
-   the 128 x 128 case beside it), and the seed-0 ResNet-18 pruned 0.7 at
-   14 x 14 at batch 8 (K4 against plain at each sparse conv, with its
-   bound and ``_int_mm`` on the densified weight, and the 128 x 128
-   model's; the engine's logits against the plain path and the dense
-   forward of the pruned model).
+21. K4 at 14 x 14 blocks, on its small-block path ``wgmma_small`` (the
+   served runs must launch no other): the MNIST CNN's fc1 (against its
+   plain version; the engine's logits against the plain path on the card
+   and the CPU, counts reset just before), the GEMM M = 512, N = K = 2048
+   at 0.7 (with the 128 x 128 case beside it), and the seed-0 ResNet-18
+   pruned 0.7 at 14 x 14 at batch 8 (K4 against plain at each sparse
+   conv, with its bound and ``_int_mm`` on the densified weight, and the
+   128 x 128 model's; the engine's logits against the plain path and the
+   dense forward of the pruned model).  Then the same model at batch 128
+   (no plain path at this size): at each of its 19 convs K4 in int32
+   against ``_int_mm`` on the densified weight (exact), both timed, and
+   the JAX package's recipe beside it -- the conv's 14 x 14 blocks
+   regrouped to 128 x 128 (``sparse/regroup.py``) on K4's Hopper path,
+   bit for bit against the native path, with each conv's
+   ``effective_density``; three batches through the engine (counts reset
+   just before, K4 on ``wgmma_small`` only), logits against the dense
+   forward of the pruned model; both forwards' img/s in the order dense,
+   sparse, sparse, dense.
 22. K8 at block_c 16, block_o 14 on the sweep's l3.c1 and l4.ds, against
    its plain version and the dense K2, bit for bit.
 23. The probes (``resnet_accel_tpu_torch/probes.py``): ``mma_s8_rate`` at
    K1's and K2's GEMM shapes, ``chain_rate`` (int32 max, f32 requant) and
    K10's scalar tile on fp32 input with stages knocked out (whole, it
-   equals K1), timed beside K10, each on a line of its own.
+   equals K1), timed beside K10, each on a line of its own; ``tma_box``
+   at inner coordinates 0, 16 and 48 against its plain version, and at 14
+   (the 14 x 14 blocks' K offset) in a process of its own, which must fail
+   with an illegal instruction: the reason K4's small-block path loads
+   32-byte windows from 16-byte boundaries.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
 the served paths; ms the kernel's time summed over the shapes of the
@@ -328,15 +341,16 @@ def served_launches(_kernels, run, must: list, what: str,
     return out, counts
 
 
-def k2_since(_kernels, before: dict, expect: str, what: str) -> dict:
-    """K2's launches since ``before`` (its variant counts then): every one
-    on the path ``expect``."""
-    after = _kernels.KERNELS["conv_int8"].variants
+def paths_since(_kernels, kernel: str, before: dict, expect: str,
+                what: str) -> dict:
+    """``kernel``'s launches since ``before`` (its variant counts then):
+    every one on the path ``expect``."""
+    after = _kernels.KERNELS[kernel].variants
     grew = {k: n - before.get(k, 0) for k, n in after.items()
             if n != before.get(k, 0)}
     if not grew or set(grew) - {expect}:
-        fail(f"{what}: K2 took {grew}, not only {expect}")
-    print(f"K2 paths, {what}: {grew}")
+        fail(f"{what}: {kernel} took {grew}, not only {expect}")
+    print(f"{kernel} paths, {what}: {grew}")
     return grew
 
 
@@ -560,7 +574,8 @@ def main() -> None:
     summary("ResNet-18 walk", {k: dict.fromkeys(v, 0.0)
                                for k, v in stats.items()},
             ("stem_fused", "conv_int8", "matmul_int8"))
-    k2_since(_kernels, k2_before, "wgmma_tma", "the ResNet-18 walk")
+    paths_since(_kernels, "conv_int8", k2_before, "wgmma_tma",
+                "the ResNet-18 walk")
     k2_stage_lines(18)
 
     # ---- 3. the dense slice through the engine ------------------------
@@ -660,7 +675,8 @@ def main() -> None:
     summary("ResNet-50 walk", before,
             ("stem_fused", "conv_int8", "expand_add", "matmul_int8"))
     print(f"K2 on the 16 c3 {k2_c3_ms:.4f} ms  ({label})")
-    k2_since(_kernels, k2_before, "wgmma_tma", "the ResNet-50 walk")
+    paths_since(_kernels, "conv_int8", k2_before, "wgmma_tma",
+                "the ResNet-50 walk")
     k2_stage_lines(50)
     del mod50
 
@@ -761,7 +777,8 @@ def main() -> None:
             y = run("c1", a)
             r = run("ds", a) if "ds" in convs else a
             a = run("c2", y, residual=r, res_scales=rs)
-    k2_since(_kernels, k2_before, "wgmma_tma", "the sparse ResNet-18 walk")
+    paths_since(_kernels, "conv_int8", k2_before, "wgmma_tma",
+                "the sparse ResNet-18 walk")
     s4 = stats["bsr_matmul"]
     summary(f"sparse convs ({len(bsr_of)})", {k: dict.fromkeys(v, 0.0)
                                               for k, v in stats.items()},
@@ -1136,7 +1153,8 @@ def main() -> None:
     summary("conv sweep (4 cases)", {k: dict.fromkeys(v, 0.0)
                                      for k, v in stats.items()},
             ("sparse_conv",))
-    k2_since(_kernels, k2_before, "wgmma_tma", "the conv sweep's dense K2")
+    paths_since(_kernels, "conv_int8", k2_before, "wgmma_tma",
+                "the conv sweep's dense K2")
 
     def sweep_lines(text, what):
         rows = [json.loads(ln) for ln in text.splitlines()
@@ -1294,7 +1312,8 @@ def main() -> None:
                                       padding=pad, relu=True),
             f"x{list(q12.shape)} k4 s1 O64 pad((2,1),(2,1))", conv_work,
             timed=False)
-    k2_since(_kernels, k2_before, "mma_sync", "the s2d stem's 4x4 conv")
+    paths_since(_kernels, "conv_int8", k2_before, "mma_sync",
+                "the s2d stem's 4x4 conv")
     s2d_ms = parts["K6"] + parts["K2 4x4"] + parts["max pool"]
     print(f"s2d stem at batch {BATCH}: equal to K1 bit for bit; "
           + ", ".join(f"{n} {v:.4f} ms" for n, v in parts.items())
@@ -1358,6 +1377,18 @@ def main() -> None:
     del rengine, dengine
 
     # ---- 21. K4 at the reference's 14 x 14 blocks -----------------------
+    from resnet_accel_tpu_torch.sparse import effective_density, regroup_bsr
+
+    def regrouped(A, bsr, want, name, **kw):
+        """K4 on ``bsr`` regrouped to 128 x 128 (the JAX package's recipe
+        for 14 x 14 exports), bit for bit against the 14 x 14 path's
+        output ``want``: (the packed weight, its time, its path)."""
+        pk128 = pack_bsr(regroup_bsr(bsr), dev)
+        if not torch.equal(bsr_matmul_wt(A, pk128, **kw), want):
+            fail(f"K4 on the regrouped {name} != the 14 x 14 path")
+        return (pk128, time_ms(lambda: bsr_matmul_wt(A, pk128, **kw), 10),
+                plan_text(bsr_plan(A, pk128, n_sms)))
+
     with tempfile.TemporaryDirectory() as tmp14:
         mnist_int8_dir(tmp14, SEED)
         mnist14 = MNISTCNNInt8.from_int8_dir(tmp14, digits).with_fc1_bsr(14)
@@ -1385,11 +1416,36 @@ def main() -> None:
               lambda out: bsr_work(f, pk, out),
               library=int_mm_call(f, densify(pk)), timed=False,
               plan=bsr_plan(f, pk, n_sms))
+        pk128, ms128, path128 = regrouped(f, mnist14.fc1_bsr,
+                                          bsr_matmul_wt(f, pk, **kw),
+                                          "fc1", **kw)
+        print(f"bsr_matmul   fc1@14 regrouped to 128x128: "
+              f"{pk128.nnz_source}/{pk128.total_source} blocks "
+              f"(effective_density "
+              f"{effective_density(mnist14.fc1_bsr, 128, 128):.3f}), equal, "
+              f"{ms128:.4f} ms {path128}  ({label})")
+        # the same A at a base 8 bytes off 16: TMA refuses it, so the call
+        # takes mma_sync, K4's path for such A, K % 16 != 0 and wide blocks
+        fu = torch.empty(f.numel() + 8, dtype=torch.int8,
+                         device=dev)[8:].view(f.shape)
+        fu.copy_(f)
+        before = dict(_kernels.KERNELS["bsr_matmul"].variants)
+        check("bsr_matmul", "fc1@14u",
+              lambda: bsr_matmul_wt(fu, pk, **kw),
+              lambda: bsr_matmul_wt_plain(fu, pk, **kw),
+              f"A{list(fu.shape)} off 16 B, 14x14",
+              lambda out: bsr_work(fu, pk, out), timed=False,
+              plan=bsr_plan(fu, pk, n_sms))
+        paths_since(_kernels, "bsr_matmul", before, "mma_sync",
+                    "K4 on the MNIST fc1 at 14 x 14, A off 16 bytes")
+        if not torch.equal(bsr_matmul_wt(fu, pk, **kw),
+                           bsr_matmul_wt(f, pk, **kw)):
+            fail("K4 on mma_sync != wgmma_small at the MNIST fc1")
     m14res, m14launches = served_launches(
         _kernels, lambda: m14engine.run_inference(xm),
         ["conv_int8", "matmul_int8", "bsr_matmul"],
         f"MNIST CNN with fc1 at 14 x 14, a batch of {BATCH}",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "mma_sync",
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_small",
          "conv_int8": {"mma_sync": 1, "wgmma_tma": 1}})
     with torch.inference_mode():
         plain = mm14.forward_plain(torch.from_numpy(xm).to(dev)).cpu().numpy()
@@ -1412,7 +1468,8 @@ def main() -> None:
             nb = -(-2048 // blk)
             keep = np.repeat(np.repeat(g_rng.random((nb, nb)) >= SPARSITY,
                                        blk, 0), blk, 1)[:2048, :2048]
-            pk = pack_bsr(build_bsr_int8_direct(W * keep, blk), dev)
+            bsr = build_bsr_int8_direct(W * keep, blk)
+            pk = pack_bsr(bsr, dev)
             check("bsr_matmul", f"gemm{blk}",
                   lambda: bsr_matmul_wt(A, pk), lambda: bsr_matmul_wt_plain(
                       A, pk), f"A[512, 2048] N2048 {pk.nnz_source}/"
@@ -1424,6 +1481,14 @@ def main() -> None:
                                A.cpu().to(torch.int64) @ torch.from_numpy(
                                    W * keep).to(torch.int64).t()):
                 fail(f"K4 at {blk} x {blk} differs from the dense product")
+            if blk == 14:
+                pk128, ms128, path128 = regrouped(
+                    A, bsr, bsr_matmul_wt(A, pk), "2048 GEMM")
+                print(f"bsr_matmul   gemm14 regrouped to 128x128: "
+                      f"{pk128.nnz_source}/{pk128.total_source} blocks "
+                      f"(effective_density "
+                      f"{effective_density(bsr, 128, 128):.3f}), equal, "
+                      f"{ms128:.4f} ms {path128}  ({label})")
 
     t0 = time.perf_counter()
     calib_img = np.random.default_rng(SEED).normal(
@@ -1436,18 +1501,22 @@ def main() -> None:
     print(f"prune {SPARSITY} at 14, quantize, attach BSR on the CPU: "
           f"{time.perf_counter() - t0:.1f} s; {n14} sparse convs")
     x8 = x0[:8]
+    bsr14 = {name: qc.bsr for name, qc in sparse14.named_convs()
+             if qc.bsr is not None}
 
-    def k4_walk(model_, what):
+    def k4_walk(model_, what, regroup=None):
         """K4 against its plain version at each sparse conv of a batch of
-        8; the summed K4, plain, bound and ``_int_mm`` times."""
+        8; the summed K4, plain, bound and ``_int_mm`` times, and with
+        ``regroup`` (each conv's BSR by name) the weights regrouped to 128
+        x 128's."""
         m = ResNet18Int8Module(model_, dev).eval()
-        tot = plain_tot = bound_tot = lib_tot = 0.0
+        tot = plain_tot = bound_tot = lib_tot = reg_tot = 0.0
         with torch.inference_mode():
             a = stem_conv_pool(x8, m.stem_k1_w, m.stem.bias,
                                m.stem.factors, m.s_input)
             for i, (convs, rs) in enumerate(zip(m.blocks, m.res_scales)):
                 def run(tag, inp, **join):
-                    nonlocal tot, plain_tot, bound_tot, lib_tot
+                    nonlocal tot, plain_tot, bound_tot, lib_tot, reg_tot
                     cv = convs[tag]
                     if cv.packed is not None:
                         A = im2col_nchw(inp, cv.kernel, cv.stride,
@@ -1468,16 +1537,23 @@ def main() -> None:
                         plain_tot += last_check["plain_ms"]
                         bound_tot += last_check["bound_ms"]
                         lib_tot += last_check["library_ms"] or 0.0
+                        if regroup is not None:
+                            reg_tot += regrouped(
+                                A, regroup[f"b{i}.{tag}"],
+                                bsr_matmul_wt(A, pk, **kw), f"b{i}.{tag}",
+                                **kw)[1]
                     return cv(inp, conv2d_int8, bsr_matmul_wt, **join)
                 y = run("c1", a)
                 r = run("ds", a) if "ds" in convs else a
                 a = run("c2", y, residual=r, res_scales=rs)
-        return tot, plain_tot, bound_tot, lib_tot
-    k4_14, k4_14p, k4_14b, k4_14l = k4_walk(sparse14, "14x14")
-    k4_128, _, k4_128b, k4_128l = k4_walk(sparse, "128x128")
+        return tot, plain_tot, bound_tot, lib_tot, reg_tot
+    k4_14, k4_14p, k4_14b, k4_14l, k4_14r = k4_walk(sparse14, "14x14",
+                                                    bsr14)
+    k4_128, _, k4_128b, k4_128l, _ = k4_walk(sparse, "128x128")
     print(f"K4 over the sparse ResNet-18's convs at batch 8: 14 x 14 "
           f"{k4_14:.4f} ms (plain {k4_14p:.4f}, bound {k4_14b:.4f}, "
-          f"_int_mm on the densified weight {k4_14l:.4f}), 128 x 128 "
+          f"_int_mm on the densified weight {k4_14l:.4f}, regrouped to "
+          f"128 x 128 {k4_14r:.4f}), 128 x 128 "
           f"{k4_128:.4f} ms (bound {k4_128b:.4f}, _int_mm {k4_128l:.4f}); "
           f"at batch {BATCH}, 128 x 128: {s4['ms']:.4f} ms  ({label})")
     s14engine = InferenceEngine(sparse14, device="cuda")
@@ -1486,7 +1562,7 @@ def main() -> None:
         _kernels, lambda: s14engine.run_inference(x8np),
         ["stem_fused", "matmul_int8", "bsr_matmul"],   # every conv is sparse
         "sparse ResNet-18 at 14 x 14, a batch of 8",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "mma_sync"})
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_small"})
     with torch.inference_mode():
         for what, ref in (
                 ("the plain path", s14engine.module.forward_plain(x8)),
@@ -1497,7 +1573,79 @@ def main() -> None:
                 fail(f"sparse 14 x 14 logits differ from {what}")
     print("sparse ResNet-18 at 14 x 14: logits [8, 1000] bit-identical to "
           "the plain path and to the dense forward of the pruned model")
-    del s14engine, m14engine
+    del m14engine
+
+    # the 14 x 14 model at batch 128: each conv against _int_mm and the
+    # regroup recipe, then the served forward
+    m14 = s14engine.module
+    t128 = {"k4": 0.0, "int_mm": 0.0, "regroup": 0.0, "bound": 0.0}
+    with torch.inference_mode():
+        a = stem_conv_pool(x0, m14.stem_k1_w, m14.stem.bias,
+                           m14.stem.factors, m14.s_input)
+        for i, (convs, rs) in enumerate(zip(m14.blocks, m14.res_scales)):
+            def run128(tag, inp, **join):
+                cv = convs[tag]
+                if cv.packed is None:
+                    fail(f"b{i}.{tag} carries no BSR at 14 x 14")
+                A = im2col_nchw(inp, cv.kernel, cv.stride,
+                                cv.padding).reshape(
+                    -1, inp.shape[1] * cv.kernel ** 2)
+                pk, name = cv.packed, f"b{i}.{tag}"
+                lib = int_mm_call(A, densify(pk))
+                if lib is None:
+                    fail(f"_int_mm does not take {name}'s shape")
+                got, want = bsr_matmul_wt(A, pk), lib()
+                if not torch.equal(got, want):
+                    fail(f"K4 at 14 x 14, batch {BATCH}, {name}: != _int_mm")
+                pk128, ms128, _ = regrouped(A, bsr14[name], got, name)
+                times = (time_ms(lambda: bsr_matmul_wt(A, pk), 10),
+                         time_ms(lib, 10), ms128)
+                b_ms, o_ms = bound_ms(*bsr_work(A, pk, got))
+                for key, ms in zip(("k4", "int_mm", "regroup", "bound"),
+                                   times + (max(b_ms, o_ms),)):
+                    t128[key] += ms
+                print(f"bsr_matmul   {name:6s} A{list(A.shape)} "
+                      f"{pk.nnz_source}/{pk.total_source} blocks 14x14 "
+                      f"int32 equal to _int_mm: K4 {times[0]:.4f} ms "
+                      f"{plan_text(bsr_plan(A, pk, n_sms))}  _int_mm "
+                      f"{times[1]:.4f} ms  regrouped to 128x128 "
+                      f"{pk128.nnz_source}/{pk128.total_source} blocks "
+                      f"(effective_density "
+                      f"{effective_density(bsr14[name], 128, 128):.3f}, "
+                      f"equal) {times[2]:.4f} ms  bound "
+                      f"{max(b_ms, o_ms):.4f} ms  ({label})")
+                return cv(inp, conv2d_int8, bsr_matmul_wt, **join)
+            y = run128("c1", a)
+            r = run128("ds", a) if "ds" in convs else a
+            a = run128("c2", y, residual=r, res_scales=rs)
+    print(f"K4 over the 14 x 14 ResNet-18's {len(bsr14)} convs at batch "
+          f"{BATCH}: {t128['k4']:.4f} ms (bound {t128['bound']:.4f}); "
+          f"_int_mm on the densified weights {t128['int_mm']:.4f} ms; the "
+          f"weights regrouped to 128 x 128 on K4's Hopper path "
+          f"{t128['regroup']:.4f} ms  ({label})")
+    s128res, s128launches = served_launches(
+        _kernels, lambda: [s14engine.run_inference(xb) for xb in batches],
+        ["stem_fused", "matmul_int8", "bsr_matmul"],
+        f"sparse ResNet-18 at 14 x 14, {len(batches)} batches of {BATCH}",
+        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_small"})
+    d14engine = InferenceEngine(pruned14, device="cuda")
+    with torch.inference_mode():
+        for b, (xb, res) in enumerate(zip(batches, s128res)):
+            ref = d14engine.module(torch.from_numpy(xb).to(dev)).cpu()
+            if res.logits.shape != (BATCH, CLASSES) or not np.array_equal(
+                    res.logits, ref.numpy()):
+                fail(f"sparse 14 x 14 batch {b} of {BATCH}: logits differ "
+                     f"from the dense forward of the pruned model")
+    print(f"sparse ResNet-18 at 14 x 14: {len(batches)} x [{BATCH}, "
+          f"{CLASSES}] logits bit-identical to the dense forward of the "
+          f"pruned model")
+    for eng, what in ((d14engine, "dense"), (s14engine, "sparse"),
+                      (s14engine, "sparse"), (d14engine, "dense")):
+        bench = eng.benchmark(batches[0], iters=10)
+        print(f"pruned at 14 x 14, {what:6s} forward batch {BATCH}: "
+              f"{bench.latency_s * 1e3:.3f} ms median, "
+              f"{bench.images_per_s:.1f} img/s  ({label})")
+    del s14engine, d14engine
 
     # ---- 22. K8 at block_c 16, block_o 14 --------------------------------
     k_rng = np.random.default_rng(SEED + 4)
@@ -1555,6 +1703,25 @@ def main() -> None:
             print(f"probe K10 scalar tile {mode:10s}: {ms:.4f} ms at batch "
                   f"{BATCH}, fp32 input (K10 pooled {k10_ms:.4f} ms)  "
                   f"({label})")
+        a_box = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+            -128, 128, (300, 64)).astype(np.int8)).to(dev)
+        for xk in (0, 16, 48):
+            if not torch.equal(probes.tma_box(a_box, xk),
+                               probes.tma_box_plain(a_box, xk)):
+                fail(f"probe tma_box at x = {xk} != its plain version")
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch; sys.path.insert(0, sys.argv[1]); "
+         "from resnet_accel_tpu_torch import probes; "
+         "probes.tma_box(torch.zeros((300, 64), dtype=torch.int8, "
+         "device='cuda'), 14); torch.cuda.synchronize()", repo],
+        capture_output=True, text=True, timeout=300)
+    if probe.returncode == 0 or "illegal instruction" not in probe.stderr:
+        fail(f"probe tma_box at x = 14: expected an illegal instruction, got "
+             f"exit {probe.returncode}: {probe.stderr[-300:]}")
+    print(f"probe tma_box: 16 x 128 boxes at x = 0, 16, 48 equal the plain "
+          f"version; at x = 14 the load faults (illegal instruction, in a "
+          f"process of its own)  ({label})")
     print(f"K10 scalar tile split at batch {BATCH}: input loads + quantize "
           f"(full - no_loads) {abl['full'] - abl['no_loads']:.4f} ms, dots "
           f"+ pool (full - stage_only) "
@@ -1565,7 +1732,8 @@ def main() -> None:
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
              + qlaunches[name] + rlaunches[name] + m14launches[name]
-             + s14launches[name] for name in _kernels.KERNELS}
+             + s14launches[name] + s128launches[name]
+             for name in _kernels.KERNELS}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, k in _kernels.KERNELS.items():

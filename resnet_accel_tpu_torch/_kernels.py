@@ -11,8 +11,10 @@ flags and is redone when either changes.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and adds
 one to the kernel's launch count, and to the count of the variant it was
-given (K2's, K3's and K4's paths, chosen by shape).  The counts let a run show
-that its main path really went through the kernels, and which path.
+given (K2's, K3's and K4's paths, chosen by shape: K4's ``wgmma_tma``,
+``wgmma_small`` for blocks of at most 16 x 16, ``mma_sync``).  The counts
+let a run show that its main path really went through the kernels, and
+which path.
 
 K2, K3 and K4 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
 tensor maps are encoded on the host by ``cuTensorMapEncodeTiled`` (and

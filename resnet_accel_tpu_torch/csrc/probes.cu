@@ -20,12 +20,18 @@
 //   epilogue_cost and staging_cost): K1's pooled tile (stem_tile.cuh)
 //   with stages knocked out at compile time (stem::Ablate).  Mode 0 is the
 //   full tile, K1's own code under another name.
+// - tma_box_kernel: one TMA tiled load of a 16-byte x 128-row box of an
+//   int8 [M, K] map with no swizzle, at inner coordinate x -- the load K4's
+//   small-block path could not use: on the H100 an x off 16 bytes faults
+//   with an illegal instruction (PERF.md), so that path loads 32-byte
+//   windows from the 16-byte boundary below each block.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "mma_s8.cuh"
+#include "sm90_gemm_s8.cuh"
 #include "stem_tile.cuh"
 
 namespace {
@@ -132,7 +138,48 @@ int stem_probe(const void* x, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kBoxK = 16, kBoxM = 128;
+
+// out [128, 16] = the box of ``map`` at (x, 0), through shared memory.
+__global__ void tma_box_kernel(const __grid_constant__ CUtensorMap map,
+                               int x, int8_t* __restrict__ out) {
+  __shared__ __align__(128) int8_t box[kBoxK * kBoxM];
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t b = sm90::smem_u32(&bar);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    sm90::mbar_expect_tx(b, kBoxK * kBoxM);
+    sm90::tma_load(sm90::smem_u32(box), &map, x, 0, b);
+  }
+  __syncthreads();
+  sm90::mbar_wait(b, 0);
+  for (int i = threadIdx.x; i < kBoxK * kBoxM; i += blockDim.x)
+    out[i] = box[i];
+}
+
 }  // namespace
+
+// a [M, K] int8 (K % 16 == 0, a 16-byte aligned base); out [128, 16]: the
+// TMA box of 16 bytes x 128 rows at inner coordinate x, no swizzle.
+extern "C" int tma_box_launch(const void* a, void* out, int64_t M, int64_t K,
+                              int64_t x, void* stream) {
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {kBoxK, kBoxM}, elem[2] = {1, 1};
+  CUtensorMap map{};
+  if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(a), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tma_box_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<int>(x), static_cast<int8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // a [M, K], b [64, K] int8 (K % 32 == 0, M 64 or 128); out [blocks, M, 64]
 // int32.

@@ -24,12 +24,16 @@ ResNet-50's fc (M 128, K 512 and 2048, N
 ReLU) and fc2 (K 128, N 10); K4 at 128 x 128 blocks at the MNIST fc1
 (0.9), the GEMM sweep's M 512, N = K = 2048 and 4096 (0.7, 0.9) and the
 pruned ResNet-18's 18 sparse convs at batch 128 (0.7; im2col shapes,
-summed); K4 at 14 x 14 (the ``mma_sync`` path) at the MNIST fc1 (its 128 x 128
-blocks at 0.9 regrouped), the 2048 GEMM (0.7) and the 18 convs at batch 8
-(0.7, summed); K2 at batch 128, 224 x 224, over ResNet-18's 19 trunk
+summed); K4 at 14 x 14 (the small-block path where the checkout has it,
+else ``mma_sync``) at the MNIST fc1 (its 128 x 128 blocks at 0.9
+regrouped), the 2048 GEMM (0.7), the 18 convs at batch 8 and the 19 (the
+1 x 1 b2.ds too) at batch 128 (0.7, summed); K2 at batch 128, 224 x 224, over ResNet-18's 19 trunk
 convs (ReLU on c1, the residual join on c2), summed by stage and in all,
 and over ResNet-50's 36 (its c1, c2 and downsample convs; the c3 run K7);
-K5 at the LM's prefill (T 640, dh 64, causal) at BH 8 and 64, one launch.
+K5 at the LM's prefill (T 640, dh 64, causal) at BH 8 and 64, one launch;
+R18: the checkout's whole ResNet-18 forward at batch 128 through
+``InferenceEngine.benchmark`` (seed-0 weights, median of ``--iters``),
+dense and pruned 0.7 in 128 x 128 blocks (K4's Hopper path).
 The trunk's conv shapes come from this script's own checkout
 (``models/resnet.py::trunk_convs``), so every checkout times the same
 convs.
@@ -40,8 +44,9 @@ times K3 and K4 instead at each cluster split given, forced in place of
 the wrappers' choice (and at their choice), with the host time of one
 call issued while the card spins, the card's event floor (a one-element
 add), the fixed cost of a launch (K4 over weights that store no block)
-and the sparse ResNet-18's b0.c1 and b2.c1 at batch 128 with int32 and
-with served int8 output.
+the sparse ResNet-18's b0.c1 and b2.c1 at batch 128 with int32 and
+with served int8 output, and K4's four 14 x 14 cases (``--splits 1``:
+the small-block path with no split).
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo C --k2-tiles 64,128
 
@@ -52,11 +57,12 @@ chunk size (key tiles a CTA) forced in place of ``flash_plan``'s.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo C --ablate
 
-times K1 at its batch-128 case, K2 at ResNet-18's 19 convs and K5 at the
-prefill on the checkout and on copies of its package with one part of a
-kernel knocked out at compile time (``ABLATIONS``; the copies are built
-under the checkout's ``resnet_accel_tpu_torch/_build/``): what the part
-costs, not a result.  With ``--cases K1`` only K1 and its ablations run.
+times K1 at its batch-128 case, K2 at ResNet-18's 19 convs, K4's
+small-block path at its four 14 x 14 cases and K5 at the prefill on the
+checkout and on copies of its package with one part knocked out
+(``ABLATIONS``; the copies are built under the checkout's
+``resnet_accel_tpu_torch/_build/``): what the part costs, not a result.
+With ``--cases K1`` only K1 and its ablations run (``--cases K4``: K4's).
 Needs a card; exits non-zero without one.
 """
 
@@ -102,6 +108,31 @@ ABLATIONS = {
          "        store_fragment<BN, kConv>(p, acc, wk, r0, lq);",
          "        if (!kConv) store_fragment<BN, kConv>(p, acc, wk, r0, lq);"),
     ],
+    # K4's small-block path with no tensor-core work: the loads, barriers
+    # and stores stay
+    "k4_no_mma": [
+        ("bsr_matmul.cu",
+         "          wgmma_n16(acc[h],\n"
+         "                    smem_desc(a + b * kSmallBoxA + h * 64 * "
+         "kSmallWin,\n"
+         "                              kSmallWin, 3),\n"
+         "                    smem_desc(w + b * 16 * kSmallWin, kSmallWin, "
+         "3));",
+         "          acc[h][b] += static_cast<int>(a);"),
+    ],
+    # K4's small-block path loads no A window: W's box and the MMA stay
+    "k4_no_a": [
+        ("bsr_matmul.cu",
+         "mbar_expect_tx(bar, kSmallW + (c.y >= 0 ? 2 : 1) * kSmallBoxA);",
+         "mbar_expect_tx(bar, kSmallW);"),
+        ("bsr_matmul.cu",
+         "        tma_load(a, &map_a, x0 - x0 % 16, m0, bar);",
+         "        if (x0 < 0) tma_load(a, &map_a, x0 - x0 % 16, m0, bar);"),
+        ("bsr_matmul.cu",
+         "        if (c.y >= 0)\n"
+         "          tma_load(a + kSmallBoxA, &map_a, x1 - x1 % 16, m0, bar);",
+         ""),
+    ],
     # K5 with one TF32 pass (hi.hi) in place of three
     "k5_one_pass": [
         ("flash_attention.cu",
@@ -127,6 +158,9 @@ RESNET18_SPARSE_CONVS = (
     + [(14 * 14, 128, 256)]
     + [(7 * 7, 2304, 512)] + [(7 * 7, 4608, 512)] * 3
     + [(7 * 7, 256, 512)])
+#: At 14 x 14 all 19 trunk convs are sparse: b2.ds (1 x 1, 64 -> 128) too.
+RESNET18_SPARSE_CONVS_14 = (RESNET18_SPARSE_CONVS[:8] + [(28 * 28, 64, 128)]
+                            + RESNET18_SPARSE_CONVS[8:])
 
 SPIN_CYCLES = 5_000_000
 
@@ -169,7 +203,6 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
     import torch
 
     from resnet_accel_tpu_torch import _kernels, ops
-    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
@@ -219,51 +252,17 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
                 torch, lambda: torch._int_mm(a, wt) + bias, iters)
 
     # ---- K4 ----
-    def masked(N, K, block, sparsity, mask_block=None):
-        """Random int8 W [N, K] with mask_block x mask_block tiles (block by
-        default) zeroed with probability ``sparsity``, as BSR at block."""
-        mb = mask_block or block
-        W = rng.integers(-128, 128, (N, K)).astype(np.int8)
-        keep = rng.random((-(-N // mb), -(-K // mb))) >= sparsity
-        W *= np.repeat(np.repeat(keep, mb, 0), mb, 1)[:N, :K]
-        return W, ops.pack_bsr(build_bsr_int8_direct(W, block), dev)
-
-    def k4(case, A, pk, dense=None):
-        emit(case, _time_ms(torch, lambda: ops.bsr_matmul_wt(A, pk), iters),
-             plan_of("bsr_plan", A, pk))
-        if dense is not None and A.shape[0] > 16:
-            wt = torch.from_numpy(dense).to(dev).t()
-            library[case] = _time_ms(torch, lambda: torch._int_mm(A, wt),
-                                     iters)
-
-    for block in (128, 14) if want("K4") else ():
-        A = i8((128, 9216))
-        W, pk = masked(128, 9216, block, 0.9, mask_block=128)
-        k4(f"K4 mnist_fc1 {block}", A, pk, W)
-    for n, s in ((2048, 0.7), (2048, 0.9), (4096, 0.7),
-                 (4096, 0.9)) if want("K4") else ():
-        A = i8((512, n))
-        W, pk = masked(n, n, 128, s)
-        k4(f"K4 gemm{n} {s} 128", A, pk, W)
-    if want("K4"):
-        A = i8((512, 2048))
-        W, pk = masked(2048, 2048, 14, 0.7)
-        k4("K4 gemm2048 0.7 14", A, pk, W)
-    for block, batch in ((128, 128), (14, 8)) if want("K4") else ():
+    for case, calls in _k4_cases(torch, ops, rng, dev) if want("K4") else ():
         total = lib_total = 0.0
         plans = set()
-        for pix, K, N in RESNET18_SPARSE_CONVS:
-            A = i8((batch * pix, K))
-            W, pk = masked(N, K, block, 0.7)
-            total += _time_ms(torch, lambda: ops.bsr_matmul_wt(A, pk),
-                              iters)
+        for A, pk, W in calls:
+            total += _time_ms(torch, lambda: ops.bsr_matmul_wt(A, pk), iters)
             plans.add(plan_of("bsr_plan", A, pk))
             wt = torch.from_numpy(W).to(dev).t()
             lib_total += _time_ms(torch, lambda: torch._int_mm(A, wt), iters)
-            del A
-        emit(f"K4 resnet18 18 convs {block} batch {batch}", total,
-             " ".join(sorted(str(p) for p in plans)))
-        library[f"K4 resnet18 18 convs {block} batch {batch}"] = lib_total
+        emit(case, total, " ".join(sorted(str(p) for p in plans)))
+        library[case] = lib_total
+        del calls
 
     # ---- K2 ----
     for depth, convs in trunks.items() if want("K2") else ():
@@ -290,7 +289,32 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
             torch, lambda: ops.flash_attention(q, k, v, causal=True), iters))
         library[f"K5 BH {BH} T 640 causal"] = _time_ms(
             torch, lambda: sdpa(q, k, v, is_causal=True), iters)
+    # ---- whole forwards ----
+    if want("R18"):
+        _r18_forwards(repo, iters, emit)
     print(json.dumps({"repo": repo, "library_ms": library}), flush=True)
+
+
+def _r18_forwards(repo, iters, emit):
+    """The checkout's ResNet-18 forward at batch 128, seed 0: dense, and
+    pruned 0.7 in 128 x 128 blocks with BSR attached."""
+    import numpy as np
+
+    from resnet_accel_tpu_torch.models.resnet18 import (
+        attach_bsr, init_resnet18_fp32, prune_params_blockwise,
+        quantize_resnet18)
+    from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
+    rng = np.random.default_rng(0)
+    calib = rng.normal(0, 1, (2, 3, 224, 224)).astype(np.float32)
+    x = rng.normal(0, 1, (128, 3, 224, 224)).astype(np.float32)
+    params = init_resnet18_fp32(seed=0, num_classes=1000)
+    sparse = attach_bsr(quantize_resnet18(
+        prune_params_blockwise(params, sparsity=0.7, block=128), calib,
+        1000), block=128, min_sparsity=0.25)
+    for name, model in (("dense", quantize_resnet18(params, calib, 1000)),
+                        ("sparse 128x128", sparse)):
+        bench = InferenceEngine(model, device="cuda").benchmark(x, iters)
+        emit(f"R18 {name} forward batch 128", bench.latency_s * 1e3)
 
 
 K1_CASE = "K1 stem batch 128 224x224"
@@ -392,6 +416,44 @@ def _k5_chunk_sweep(repo: str, iters: int, chunks) -> None:
         print(json.dumps(row), flush=True)
 
 
+def _k4_cases(torch, ops, rng, dev, small_only=False):
+    """K4's cases in order, random int8 weights with tiles zeroed at the
+    case's sparsity: (case, [(A, packed weight, dense weight W [N, K]),
+    ...]), a case of several calls summed.  Each case's data is made when
+    it is reached (the 19 A matrices at batch 128 hold 1.6 GB).  With
+    ``small_only``, only the four 14 x 14 cases: the MNIST fc1, the 2048
+    GEMM, ResNet-18's 19 convs at batch 8 and 128."""
+    import numpy as np
+
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+
+    def call(M, N, K, block, sparsity, mask_block=None):
+        """A [M, K] and W [N, K] with mask_block x mask_block tiles (block
+        by default) zeroed with probability ``sparsity``, as BSR at
+        block."""
+        mb = mask_block or block
+        W = rng.integers(-128, 128, (N, K)).astype(np.int8)
+        keep = rng.random((-(-N // mb), -(-K // mb))) >= sparsity
+        W *= np.repeat(np.repeat(keep, mb, 0), mb, 1)[:N, :K]
+        A = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=dev)
+        return A, ops.pack_bsr(build_bsr_int8_direct(W, block), dev), W
+
+    for block in (14,) if small_only else (128, 14):
+        yield (f"K4 mnist_fc1 {block}",
+               [call(128, 128, 9216, block, 0.9, mask_block=128)])
+    for n, s in () if small_only else ((2048, 0.7), (2048, 0.9),
+                                       (4096, 0.7), (4096, 0.9)):
+        yield f"K4 gemm{n} {s} 128", [call(512, n, n, 128, s)]
+    yield "K4 gemm2048 0.7 14", [call(512, 2048, 2048, 14, 0.7)]
+    for block, batch, convs in (
+            (128, 128, RESNET18_SPARSE_CONVS), (14, 8, RESNET18_SPARSE_CONVS),
+            (14, 128, RESNET18_SPARSE_CONVS_14)):
+        if block == 14 or not small_only:
+            yield (f"K4 resnet18 {len(convs)} convs {block} batch {batch}",
+                   [call(batch * pix, N, K, block, 0.7)
+                    for pix, K, N in convs])
+
+
 def _ablated(repo: str, name: str) -> str:
     """A copy of ``repo``'s package with ablation ``name`` applied, under
     its build directory; returns the copy's root."""
@@ -438,6 +500,13 @@ def _ablation_run(repo: str, iters: int, trunks, name: str,
         fn = _k2_call(torch, ops, rng, dev, 18, cname, *shape)
         print(json.dumps({"ablation": name, "case": f"K2 resnet18 {cname}",
                           "ms": _time_ms(torch, fn, iters)}), flush=True)
+    for case, calls in _k4_cases(torch, ops, rng, dev, small_only=True) if (
+            want("K4")) else ():
+        ms = sum(_time_ms(torch, lambda: ops.bsr_matmul_wt(A, pk), iters)
+                 for A, pk, _ in calls)
+        print(json.dumps({"ablation": name, "case": case, "ms": ms}),
+              flush=True)
+        del calls
     for BH in (8, 64) if want("K5") else ():
         q, k, v = _k5_inputs(torch, dev, BH)
         err = (ops.flash_attention(q, k, v, causal=True)
@@ -449,8 +518,8 @@ def _ablation_run(repo: str, iters: int, trunks, name: str,
 
 
 def _split_sweep(repo: str, iters: int, splits) -> None:
-    """K3 and K4 at each cluster split of ``splits``, forced in place of
-    the wrappers' choice, with the fixed cost of a launch (K4 over a weight
+    """K3 and K4 (both paths) at each cluster split of ``splits``, forced
+    in place of the wrappers' choice, with the fixed cost of a launch (K4 over a weight
     that stores no block: no K step) and the card's event floor (one
     one-element add)."""
     sys.path.insert(0, os.path.abspath(repo))
@@ -514,6 +583,10 @@ def _split_sweep(repo: str, iters: int, splits) -> None:
         cases.append((f"K4 {name} int8", lambda A=A, pk=pk, b=bias, f=f:
                       ops.bsr_matmul_wt(A, pk, bias=b, factors=f,
                                         relu=True)))
+    # K4's small-block path at its four 14 x 14 cases, each summed
+    for name, calls in _k4_cases(torch, ops, rng, dev, small_only=True):
+        cases.append((name, lambda calls=calls: [ops.bsr_matmul_wt(A, pk)
+                                                 for A, pk, _ in calls]))
     chosen = _kernels.cluster_split
     for split in (None, *splits):
         forced = chosen if split is None else (lambda *_a, s=split, **_k: s)

@@ -12,10 +12,13 @@ and both versions compute
 ``bsr_matmul_wt`` launches the CUDA kernel ``csrc/bsr_matmul.cu`` for CUDA
 tensors and runs :func:`bsr_matmul_wt_plain` for CPU tensors.  A block row
 with no stored block still yields its output columns (``bias`` through the
-epilogue), as the TPU kernel's zero filler block does.  The kernel has two
+epilogue), as the TPU kernel's zero filler block does.  The kernel has three
 paths, chosen by shape (:func:`bsr_plan`): the Hopper main loop (TMA,
 ``wgmma``, split-K clusters) for blocks the tensor-core tiles take, every
-128 x 128 path served; the ``mma.sync`` path for any other block shape.
+128 x 128 path served; the small-block path for blocks of at most 16 x 16
+(the reference's 14 x 14, 8 x 8), which walks the block rows two blocks a
+stage, each in the 32-byte K window that holds it (:func:`small_stages`);
+the ``mma.sync`` path for any other block shape or a K that TMA refuses.
 
 ``bsr_matmul_wt_xla`` over a :class:`GatherBSR` is the other route, the
 one the LM's projections take, as the JAX package's LM does: the
@@ -37,12 +40,65 @@ from resnet_accel_tpu_torch.ops.epilogue import requantize
 from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix
 
 
+#: The largest block side of the small-block path: a block padded to 16
+#: rows is the N of one ``wgmma`` (m64n16k32), and its K values fit, at any
+#: offset, in the 32-byte aligned window that holds them.
+SMALL_BLOCK = 16
+#: K bytes of a small-block window: one ``wgmma`` k32 step.
+SMALL_WINDOW = 32
+#: Bytes of one small-block stage's weight image: two 16 x 32 windows.
+SMALL_STAGE_BYTES = 2 * SMALL_BLOCK * SMALL_WINDOW
+
+
+def small_stages(bsr: BSRMatrix):
+    """The small-block path's walk of ``bsr`` (blocks of at most 16 x 16):
+    each block row's stored blocks, in order, paired into stages (an odd
+    row's last stage pairs its block with a zero one).
+
+    A block at block column ``c`` covers A's K bytes [bw * c, bw * c + bw);
+    TMA loads A only at 16-byte aligned K, so the kernel loads the 32-byte
+    window from ``x0 = bw * c - d``, ``d = (bw * c) % 16``, and the block's
+    image is that window of W: 16 rows x 32 K bytes, the block at columns
+    [d, d + bw), zero elsewhere (the window's other bytes of A meet zeros,
+    so the int32 sum stays exact).
+
+    Returns ``(stages, stage_ptr, stage_col)``: ``stages`` [n_stages, 1024]
+    int8, each stage's two windows row-major (rows 0-15 the first block's,
+    16-31 the second's); ``stage_ptr`` [nbr + 1] int32, the stages of block
+    row ``br`` being ``stage_ptr[br]:stage_ptr[br + 1]``; ``stage_col``
+    [n_stages, 2] int32, the block columns of the two blocks (-1 for the
+    zero one)."""
+    bh, bw = bsr.block_h, bsr.block_w
+    if bh > SMALL_BLOCK or bw > SMALL_BLOCK:
+        raise ValueError(f"small_stages takes blocks of at most "
+                         f"{SMALL_BLOCK} x {SMALL_BLOCK}, not {bh} x {bw}")
+    row_ptr = np.asarray(bsr.row_ptr, np.int64)
+    counts = np.diff(row_ptr)
+    stage_ptr = np.concatenate([[0], np.cumsum((counts + 1) // 2)])
+    n_stages = int(stage_ptr[-1])
+    row_of = np.repeat(np.arange(counts.size), counts)
+    slot = 2 * stage_ptr[row_of] + np.arange(row_ptr[-1]) - row_ptr[row_of]
+    col_idx = np.asarray(bsr.col_idx, np.int64)
+    shift = (bw * col_idx) % 16                  # d of each stored block
+    img = np.zeros((2 * n_stages, SMALL_BLOCK, SMALL_WINDOW), np.int8)
+    data = np.asarray(bsr.data, np.int8).reshape(-1, bh, bw)
+    for d in np.unique(shift):
+        at = shift == d
+        img[slot[at], :bh, d:d + bw] = data[at]
+    col = np.full(2 * n_stages, -1, np.int32)
+    col[slot] = col_idx
+    return (img.reshape(n_stages, SMALL_STAGE_BYTES),
+            stage_ptr.astype(np.int32), col.reshape(n_stages, 2))
+
+
 @dataclasses.dataclass
 class PackedBSR:
     """A ``BSRMatrix`` of int8 blocks on a device, in the CSR layout the
     kernel walks: the blocks of block row ``br`` are
     ``blocks[row_ptr[br]:row_ptr[br + 1]]``, each [block_h, block_w] in
-    the W[N, K] orientation, at block column ``col_idx[i]``."""
+    the W[N, K] orientation, at block column ``col_idx[i]``.  Blocks of at
+    most 16 x 16 also carry the small-block path's stages
+    (:func:`small_stages`); other blocks carry None there."""
 
     blocks: torch.Tensor     # [nnz, block_h, block_w] int8
     row_ptr: torch.Tensor    # [n_padded / block_h + 1] int32
@@ -56,6 +112,10 @@ class PackedBSR:
     nnz_source: int          # stored blocks
     total_source: int        # blocks of the padded grid
     max_row_blocks: int      # the fullest block row's stored blocks
+    stages: Optional[torch.Tensor] = None     # [n_stages, 1024] int8
+    stage_ptr: Optional[torch.Tensor] = None  # [n_padded / block_h + 1]
+    stage_col: Optional[torch.Tensor] = None  # [n_stages, 2] int32
+    max_row_stages: int = 0  # the fullest block row's stages
 
 
 def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
@@ -67,6 +127,13 @@ def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
         return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
 
     counts = np.diff(np.asarray(bsr.row_ptr))
+    small = {}
+    if bsr.block_h <= SMALL_BLOCK and bsr.block_w <= SMALL_BLOCK:
+        stages, stage_ptr, stage_col = small_stages(bsr)
+        small = dict(stages=put(stages, np.int8),
+                     stage_ptr=put(stage_ptr, np.int32),
+                     stage_col=put(stage_col, np.int32),
+                     max_row_stages=int(np.diff(stage_ptr).max(initial=0)))
     return PackedBSR(
         blocks=put(bsr.data, np.int8).reshape(-1, bsr.block_h, bsr.block_w),
         row_ptr=put(bsr.row_ptr, np.int32),
@@ -75,7 +142,7 @@ def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
         n_out=bsr.shape[0], k_dim=bsr.shape[1],
         n_padded=bsr.padded_shape[0], k_padded=bsr.padded_shape[1],
         nnz_source=bsr.nnz_blocks, total_source=bsr.total_blocks,
-        max_row_blocks=int(counts.max()) if counts.size else 0)
+        max_row_blocks=int(counts.max()) if counts.size else 0, **small)
 
 
 def _check_k(a: torch.Tensor, packed: PackedBSR) -> None:
@@ -126,28 +193,45 @@ def bsr_plan(a: torch.Tensor, packed: PackedBSR,
              sms: int = _kernels.H100_SMS) -> GemmPlan:
     """K4's path for ``a`` against ``packed``, by shape.
 
-    ``wgmma_tma``, the Hopper main loop, where its tiles take the blocks
-    (``block_w % 32 == 0``, ``block_h % 8 == 0``, ``block_h <= 256``: the
-    limits of ``wgmma``'s N) and TMA takes A and the blocks (K % 16 == 0,
-    16-byte aligned bases).  Its N tile is the smallest of 64, 128 and 256
-    that holds a block row's outputs (64 where the row ends in padding, as
-    in the stage-1 convs: n_out 64 inside block_h 128), and each block
-    row's list of stored blocks is split across a cluster of two while the
-    grid of M tiles x block rows leaves half the card's ``sms`` SMs idle.
-    Every other shape (the reference's 14 x 14, 8 x 8, 16 x 24 ...):
-    ``mma_sync``, whose ``mma.sync`` tiles take any block."""
+    Both tensor-core paths load A through TMA, which needs K % 16 == 0 and
+    16-byte aligned bases.  Where it takes them:
+
+    - ``wgmma_tma``, the Hopper main loop, where its tiles take the blocks
+      (``block_w % 32 == 0``, ``block_h % 8 == 0``, ``block_h <= 256``:
+      the limits of ``wgmma``'s N).  Its N tile is the smallest of 64, 128
+      and 256 that holds a block row's outputs (64 where the row ends in
+      padding, as in the stage-1 convs: n_out 64 inside block_h 128).
+    - ``wgmma_small`` for the other blocks of at most 16 x 16 (the
+      reference's 14 x 14, 8 x 8): one block row of a 128-row M tile a
+      CTA, each block one 32-byte K window, two a stage
+      (:func:`small_stages`), N tile 16.
+
+    Each block row's walk (stored blocks, or stages) is split across a
+    cluster of two while the grid of M tiles x block rows leaves half the
+    card's ``sms`` SMs idle (:func:`cluster_split`).  Every other shape
+    (16 x 24, 16 x 48 ..., or K % 16 != 0): ``mma_sync``, whose
+    ``mma.sync`` tiles take any block."""
     bh, bw = packed.block_h, packed.block_w
     M, K = a.shape
-    if not (bw % 32 == 0 and bh % 8 == 0 and bh <= 256 and K % 16 == 0
-            and a.data_ptr() % 16 == 0
-            and packed.blocks.data_ptr() % 16 == 0):
-        return GemmPlan("mma_sync", 0, 1)
-    need = min(bh, packed.n_out)
-    bn = 64 if need <= 64 else 128 if need <= 128 else 256
-    stages = bw // (128 if bw % 128 == 0 else 64 if bw % 64 == 0 else 32)
     ctas = -(-M // 128) * (packed.n_padded // bh)
-    return GemmPlan("wgmma_tma", bn, cluster_split(
-        ctas, packed.max_row_blocks * stages, sms))
+    tma = K % 16 == 0 and a.data_ptr() % 16 == 0
+    if (tma and bw % 32 == 0 and bh % 8 == 0 and bh <= 256
+            and packed.blocks.data_ptr() % 16 == 0):
+        need = min(bh, packed.n_out)
+        bn = 64 if need <= 64 else 128 if need <= 128 else 256
+        stages = bw // (128 if bw % 128 == 0 else 64 if bw % 64 == 0
+                        else 32)
+        return GemmPlan("wgmma_tma", bn, cluster_split(
+            ctas, packed.max_row_blocks * stages, sms))
+    if (tma and packed.stages is not None
+            and packed.stages.data_ptr() % 16 == 0):
+        return GemmPlan("wgmma_small", SMALL_BLOCK, cluster_split(
+            ctas, packed.max_row_stages, sms))
+    return GemmPlan("mma_sync", 0, 1)
+
+
+#: The C launcher's path codes, by variant.
+_PATHS = {"mma_sync": 0, "wgmma_tma": 1, "wgmma_small": 2}
 
 
 def bsr_matmul_wt(
@@ -193,14 +277,26 @@ def bsr_matmul_wt(
     # The mma.sync path: 16-byte loads of A need aligned rows, other A take a
     # byte gather.
     vec_a = K % 16 == 0 and a.data_ptr() % 16 == 0
+    walk = (packed.blocks, packed.row_ptr, packed.col_idx, packed.nnz_source)
+    if plan.variant == "wgmma_small":
+        # the same arguments carry the stages: images, row pointers, columns
+        n_stages = packed.stages.shape[0]
+        _kernels.check(packed.stages, "stages", torch.int8,
+                       (n_stages, SMALL_STAGE_BYTES), dev)
+        _kernels.check(packed.stage_ptr, "stage_ptr", torch.int32,
+                       (nbr + 1,), dev)
+        _kernels.check(packed.stage_col, "stage_col", torch.int32,
+                       (n_stages, 2), dev)
+        walk = (packed.stages, packed.stage_ptr, packed.stage_col, n_stages)
+    blocks, row_ptr, col_idx, nnz = walk
     _kernels.launch(
-        "bsr_matmul", dev, a.data_ptr(), packed.blocks.data_ptr(),
-        packed.row_ptr.data_ptr(), packed.col_idx.data_ptr(),
+        "bsr_matmul", dev, a.data_ptr(), blocks.data_ptr(),
+        row_ptr.data_ptr(), col_idx.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if factors is None else factors.data_ptr(), out.data_ptr(),
         M, K, N, nbr, bh, bw, int(relu), int(factors is not None),
-        int(vec_a), int(plan.variant == "wgmma_tma"), plan.bn, plan.split,
-        packed.nnz_source, variant=plan.variant)
+        int(vec_a), _PATHS[plan.variant], plan.bn, plan.split, nnz,
+        variant=plan.variant)
     return out
 
 

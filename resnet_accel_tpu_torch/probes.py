@@ -18,6 +18,12 @@ ms`` the caller gives (``chip_smoke.py``'s CUDA-event timer):
   ``stem_ring_probe.py``'s ``epilogue_cost`` and ``staging_cost``): the
   scalar stem tile of ``csrc/stem_tile.cuh`` (K10's) on K1's fp32 inputs,
   with stages knocked out.
+- :func:`tma_box` (no TPU counterpart; K4's small-block path rests on
+  it): one TMA tiled load of a 16-byte x 128-row box at an inner
+  coordinate ``x``.  Equal to :func:`tma_box_plain` where ``x`` is a
+  multiple of 16; off 16 bytes the H100 faults with an illegal
+  instruction, which poisons the process's CUDA context, so a caller
+  tries such an ``x`` in a process of its own.
 """
 
 from __future__ import annotations
@@ -181,3 +187,30 @@ def chain_rate(kind: str, device: torch.device, timer: Timer,
     per_step = _slope_ms(timer, lambda n: chain(x, n, kind), *steps, iters)
     return {"steps_per_s": 4 * threads / (per_step * 1e-3),
             "threads": threads}
+
+
+#: The box :func:`tma_box` loads: 16 bytes of K by 128 rows.
+TMA_BOX = (128, 16)
+
+
+def tma_box(a: torch.Tensor, x: int) -> torch.Tensor:
+    """The TMA box of int8 ``a`` [M, K] (K % 16 == 0) at (x, 0): [128, 16]
+    int8, zero past K and M, as TMA loads it into shared memory."""
+    _cuda(a, "tma_box")
+    M, K = a.shape
+    if K % 16:
+        raise ValueError(f"tma_box needs K % 16 == 0, got K = {K}")
+    dev = a.device
+    _kernels.check(a, "a", torch.int8, (M, K), dev)
+    out = torch.empty(TMA_BOX, dtype=torch.int8, device=dev)
+    _kernels.launch_probe("tma_box_launch", [_P] * 2 + [_I] * 3, dev,
+                          a.data_ptr(), out.data_ptr(), M, K, x)
+    return out
+
+
+def tma_box_plain(a: torch.Tensor, x: int) -> torch.Tensor:
+    """Plain version of :func:`tma_box`."""
+    out = torch.zeros(TMA_BOX, dtype=torch.int8, device=a.device)
+    part = a[:TMA_BOX[0], x:x + TMA_BOX[1]]
+    out[:part.shape[0], :part.shape[1]] = part
+    return out

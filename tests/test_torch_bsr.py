@@ -233,8 +233,9 @@ class TestBsrMatmul:
 
     @pytest.mark.parametrize("sparsity", [0.0, 0.7, 0.95])
     def test_14x14_blocks_plain_vs_golden(self, sparsity):
-        """The reference's own block size: the plain version only (the
-        kernel refuses it on a card)."""
+        """The reference's own block size, through the plain version (the
+        kernel's small-block path is held to it on a card, and modelled on
+        the CPU in tests/test_torch_bsr_small.py)."""
         rng = np.random.default_rng(5)
         W = sparse_weight(rng, 70, 126, 14, 14, sparsity)
         A = rng.integers(-128, 128, (5, 126)).astype(np.int8)

@@ -200,12 +200,15 @@ def test_matmul_schedule(M, K, N, split):
 @pytest.mark.parametrize("bh,bw,K,variant,bn", [
     (128, 128, 576, "wgmma_tma", 64), (128, 128, 9216, "wgmma_tma", 128),
     (256, 128, 512, "wgmma_tma", 256), (32, 32, 160, "wgmma_tma", 64),
-    (14, 14, 9216, "mma_sync", 0), (8, 8, 96, "mma_sync", 0),
+    (14, 14, 9216, "wgmma_small", 16), (8, 8, 96, "wgmma_small", 16),
+    (14, 14, 576, "wgmma_small", 16), (16, 16, 64, "wgmma_small", 16),
+    (14, 14, 9220, "mma_sync", 0), (8, 8, 100, "mma_sync", 0),
     (16, 48, 192, "mma_sync", 0), (32, 32, 37, "mma_sync", 0)])
 def test_bsr_plan_by_shape(bh, bw, K, variant, bn):
-    """The Hopper path for blocks wgmma's tiles and TMA take, the
-    ``mma_sync`` path for the rest (14 x 14, 8 x 8, widths off 32 bytes, K
-    off 16)."""
+    """The Hopper path for blocks wgmma's tiles and TMA take, the small-
+    block path for the other blocks of at most 16 x 16 (14 x 14, 8 x 8)
+    where TMA takes A, the ``mma_sync`` path for the rest (widths off 32
+    bytes above 16, K off 16)."""
     n_out = 64 if K == 576 else 2 * bh
     W = np.ones((n_out, K), np.int8)
     packed = ops.pack_bsr(build_bsr_int8_direct(W, bh, bw), "cpu")

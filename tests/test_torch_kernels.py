@@ -447,7 +447,9 @@ def test_bsr_matmul_empty_block_row(cuda):
 # Any block shape: the reference's 14 x 14, 8 x 8, 16 x 24, and widths of
 # 16 and 48 (whole 16-byte chunks, with K aligned or not), with M, N and K
 # ragged against the blocks and N not a multiple of block_h, so the masked
-# K tails and the slice that ends inside a block row are met.
+# K tails and the slice that ends inside a block row are met.  Blocks of
+# at most 16 x 16 with K % 16 == 0 take the small-block path, the rest
+# mma_sync (bsr_plan).
 @pytest.mark.parametrize("M,K,N,bh,bw", [
     (300, 9216, 128, 14, 14), (77, 203, 131, 14, 14), (130, 100, 37, 8, 8),
     (129, 200, 70, 16, 24), (64, 192, 40, 8, 16), (70, 200, 50, 16, 48)])
@@ -470,13 +472,93 @@ def test_bsr_matmul_block_shapes(cuda, M, K, N, bh, bw, requant):
     got = ops.bsr_matmul_wt(a, packed, **kw)
     torch.cuda.synchronize()
     assert _kernels.launch_counts()["bsr_matmul"] == before + 1
-    _variant_launched("bsr_matmul", variants, "mma_sync")
+    _variant_launched("bsr_matmul", variants,
+                      "wgmma_small" if bh <= 16 and bw <= 16 and K % 16 == 0
+                      else "mma_sync")
     want = ops.bsr_matmul_wt_plain(a, packed, **kw)
     assert got.dtype == want.dtype and torch.equal(got, want)
     if not requant:     # the dense product of the same weights
         dense = a.cpu().to(torch.int64) @ torch.from_numpy(W).to(
             torch.int64).t() + bias.cpu()
         assert torch.equal(got.cpu().to(torch.int64), dense)
+
+
+def _small_case(rng, dev, M, K, N, blk, sparsity, counts=None):
+    """int8 A [M, K] and W [N, K] at blk x blk blocks zeroed with
+    probability ``sparsity`` (or ``counts[br]`` blocks kept in block row
+    br), with bias and requant factors, on ``dev``."""
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    W = _i8(rng, (N, K))
+    nbr, nbc = -(-N // blk), -(-K // blk)
+    keep = rng.random((nbr, nbc)) >= sparsity
+    if counts is not None:
+        keep[:] = False
+        for br, n in enumerate(counts):
+            keep[br, rng.choice(nbc, n, replace=False)] = True
+    W *= np.repeat(np.repeat(keep, blk, 0), blk, 1)[:N, :K]
+    return (_t(_i8(rng, (M, K)), dev), W,
+            _t(rng.integers(-3000, 3000, N).astype(np.int32), dev),
+            _t((rng.uniform(0.5, 1.5, N) * 0.011 / np.sqrt(K)).astype(
+                np.float32), dev))
+
+
+# The small-block path (wgmma_small) at the served 14 x 14 shapes: the
+# MNIST fc1 (one M tile, split across a cluster), the 2048 GEMM, the
+# ResNet-18's stage-1 and stage-4 convs at batch 8 (K 576 and 4608) and a
+# 1 x 1 downsample (K 64); at 8 x 8; rows of zero, one and an odd count of
+# blocks; ragged M and N; a block row with no stored block.
+@pytest.mark.parametrize("M,K,N,blk,sparsity,counts", [
+    (128, 9216, 128, 14, 0.87, None), (512, 2048, 2048, 14, 0.7, None),
+    (25088, 576, 64, 14, 0.7, None), (392, 4608, 512, 14, 0.7, None),
+    (6272, 64, 128, 14, 0.7, None), (300, 208, 131, 14, 0.0, None),
+    (77, 208, 70, 14, None, (3, 0, 1, 2, 15)), (130, 208, 37, 8, 0.5, None),
+    (64, 96, 40, 8, None, (1, 0, 5, 12, 2)), (129, 256, 44, 14, 1.0, None)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_bsr_matmul_small(cuda, M, K, N, blk, sparsity, counts, requant):
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    rng = np.random.default_rng(M + K + blk)
+    a, W, bias, f = _small_case(rng, cuda, M, K, N, blk, sparsity or 0.0,
+                                counts)
+    packed = ops.pack_bsr(build_bsr_int8_direct(W, blk), cuda)
+    kw = dict(bias=bias, factors=f if requant else None, relu=requant)
+    assert ops.bsr_plan(a, packed, _kernels.sm_count(cuda)).variant == \
+        "wgmma_small"
+    before = _kernels.launch_counts()["bsr_matmul"]
+    variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
+    got = ops.bsr_matmul_wt(a, packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["bsr_matmul"] == before + 1
+    _variant_launched("bsr_matmul", variants, "wgmma_small")
+    want = ops.bsr_matmul_wt_plain(a, packed, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if not requant and M <= 512:    # the dense product of the same weights
+        dense = a.cpu().to(torch.int64) @ torch.from_numpy(W).to(
+            torch.int64).t() + bias.cpu()
+        assert torch.equal(got.cpu().to(torch.int64), dense)
+
+
+@pytest.mark.parametrize("split", [None, 1, 2, 4, 8])
+def test_bsr_matmul_small_cluster_split(cuda, monkeypatch, split):
+    """The MNIST fc1 at 14 x 14 with each cluster split forced (2 by the
+    wrapper's choice), and a block row with no stored block: every split
+    sums the same bits."""
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    rng = np.random.default_rng(31)
+    a, W, bias, f = _small_case(rng, cuda, 128, 9216, 128, 14, 0.87)
+    W[28:42] = 0                       # block row 2 stores nothing
+    packed = ops.pack_bsr(build_bsr_int8_direct(W, 14), cuda)
+    assert packed.stage_ptr[2] == packed.stage_ptr[3]
+    assert ops.bsr_plan(a, packed, _kernels.sm_count(cuda)).split == 2
+    _force_split(monkeypatch, "bsr_matmul", split)
+    for kw in (dict(), dict(bias=bias, factors=f, relu=True)):
+        variants = dict(_kernels.KERNELS["bsr_matmul"].variants)
+        got = ops.bsr_matmul_wt(a, packed, **kw)
+        torch.cuda.synchronize()
+        _variant_launched("bsr_matmul", variants, "wgmma_small")
+        assert torch.equal(got, ops.bsr_matmul_wt_plain(a, packed, **kw))
+    dense = a.cpu().to(torch.int64) @ torch.from_numpy(W).to(torch.int64).t()
+    assert torch.equal(ops.bsr_matmul_wt(a, packed).cpu().to(torch.int64),
+                       dense)
 
 
 # The four c3 shapes of ResNet-50 at batch 2, a single pixel (M = 1), and
