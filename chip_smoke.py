@@ -37,7 +37,8 @@ result line) without them.  Phases, each fatal on failure:
 5. ResNet-50 at full width and depth (seed 0, the same geometry and
    batch): walks one batch through the layers and holds K1 at the stem,
    K2 at every c1, c2 and downsample, K7 at each of the 16 c3 (with K2's
-   time on the same c3 and join beside it; the two must agree) and K3 at
+   time on the same c3 and join beside it, the two must agree, and
+   ``torch._int_mm``'s on the c3's product alone) and K3 at
    the fc layer against their plain versions, bit for bit.
 6. Serve three batches of 128 of ResNet-50 through the engine, counts
    reset just before: K1, K2, K3 and K7 must launch, K7 16 times a batch.
@@ -94,15 +95,18 @@ result line) without them.  Phases, each fatal on failure:
    process, counts reset just before (K8 and K2 must launch), and as a
    subprocess; each must print four JSON lines.
 16. K10 at ResNet-18's stem, batch 128, 224 x 224, on ``quantize_input``
-   of the seed-0 images: pooled and unpooled against the plain version,
-   and pooled against K1 on the fp32 images, bit for bit.
+   of the seed-0 images and the packed weight the model serves: pooled
+   and unpooled against the plain version (both timed), and pooled
+   against K1 on the fp32 images, bit for bit; then at the card tests'
+   geometries (odd and even W, batch 12), saturated values included, on
+   the OIHW and the packed weight.
 17. The int8 stream: three batches of 128 quantized on the host through
    ``InferenceEngine(device="cuda").stream``, counts reset just before:
    K10, K2 and K3 must launch and K1 must not.  The logits must be finite,
    [128, 1000] a batch, bit-identical to the plain path on the card, to
    the fp32-input forward of the same images and for two images to the
    plain path on the CPU.  Prints the stream's img/s and the int8- and
-   fp32-input forwards' times.
+   fp32-input forwards' times, in the order fp32, int8, int8, fp32.
 18. K6 at the batch-128 stem on the seed-0 images, on exact rounding ties
    and saturating values, and at batches 1 and 3, against its plain
    version, bit for bit; its time, plain time and bound.
@@ -138,8 +142,9 @@ result line) without them.  Phases, each fatal on failure:
    its plain version and the dense K2, bit for bit.
 23. The probes (``resnet_accel_tpu_torch/probes.py``): ``mma_s8_rate`` at
    K1's and K2's GEMM shapes, ``chain_rate`` (int32 max, f32 requant) and
-   K10's scalar tile on fp32 input with stages knocked out (whole, it
-   equals K1), timed beside K10, each on a line of its own; ``tma_box``
+   the stem's tensor-core tile, pooled on fp32 input, with stages knocked
+   out (whole, it equals K1), timed beside K1 and K10, each on a line of
+   its own; ``tma_box``
    at inner coordinates 0, 16 and 48 against its plain version, and at 14
    (the 14 x 14 blocks' K offset) in a process of its own, which must fail
    with an illegal instruction: the reason K4's small-block path loads
@@ -149,10 +154,10 @@ The line before the last is ``{"kernels": [...]}`` (launches summed over
 the served paths; ms the kernel's time summed over the shapes of the
 paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
 K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5, the
-sweep's four cases for K8, the pooled stem for K10, the batch-128 stem for
-K6; bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
-and operations / the peak of their type, K5's at the 3xTF32 rate it
-runs; library_ms the PyTorch call timed
+sweep's four cases for K8, the pooled and unpooled stem for K10, the
+batch-128 stem for K6; bound_ms the sum over the same calls of the larger
+of bytes / 3.35 TB/s and operations / the peak of their type, K5's at the
+3xTF32 rate it runs; library_ms the PyTorch call timed
 beside the kernel, summed the same way, or null); the last is
 ``{"ok": true, "device": {...}}``.  Every time printed is labelled with
 the card's name and power limit.
@@ -400,7 +405,8 @@ def main() -> None:
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
         expand_add_int8_plain, flash_attention, flash_attention_plain,
         bsr_plan, im2col_nchw, matmul_int8, matmul_int8_plain, matmul_plan,
-        maxpool2d_int8, pack_bsr, pack_weight, quantize_input, quantize_s2d,
+        maxpool2d_int8, pack_bsr, pack_stem_weight, pack_weight,
+        quantize_input, quantize_s2d,
         quantize_s2d_nchw, sparse_conv2d_int8, sparse_conv2d_int8_plain,
         stem_conv_pool, stem_conv_pool_int8, stem_conv_pool_int8_plain,
         stem_conv_pool_plain, stem_s2d_weights)
@@ -658,10 +664,13 @@ def main() -> None:
                 O, C = args[1].shape
                 return (y.numel() + O * C + 8 * O + r.numel() + out.numel(),
                         2 * out.numel() * C, "int8")
+            # the library: the c3's product alone, [N*H*W, C] x [C, 4C]
+            y2d = y.permute(0, 2, 3, 1).reshape(-1, y.shape[1])
             a = check("expand_add", f"b{i}.c3",
                       lambda: expand_add_int8(*args),
                       lambda: expand_add_int8_plain(*args),
-                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join", work)
+                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join", work,
+                      library=int_mm_call(y2d, args[1]))
 
             def k2_c3():
                 return c3(y, conv2d_int8, residual=r, res_scales=rs)
@@ -1198,16 +1207,55 @@ def main() -> None:
                 return (q0.numel() + st.weight.numel() + 8 * 64
                         + out.numel(),
                         2 * N * 64 * Hc * Wc * st.weight[0].numel(), "int8")
-            args = (q0, st.weight, st.bias, st.factors, pool)
+            args = (q0, mod.stem_k1_w, st.bias, st.factors, pool)
             k10 = check("stem_int8", "pooled" if pool else "conv",
                         lambda: stem_conv_pool_int8(*args),
                         lambda: stem_conv_pool_int8_plain(*args),
-                        f"q{list(q0.shape)} int8", work, timed=pool)
+                        f"q{list(q0.shape)} int8", work)
             if pool and not torch.equal(k10, stem_conv_pool(
                     x0, mod.stem_k1_w, st.bias, st.factors, mod.s_input)):
                 fail("K10 of the quantized images differs from K1 of the "
                      "fp32 ones")
-    print(f"K10 pooled equals K1 on the fp32 images it came from  ({label})")
+        # the card tests' geometries (odd W: byte loads; even: 16-bit), on
+        # the OIHW and the packed weight, and saturated values
+        grng = np.random.default_rng(SEED + 7)
+        geoms = [(2, 232, 232, False), (1, 37, 50, False),
+                 (1, 28, 16, False), (1, 31, 29, False),
+                 (12, 224, 224, False), (2, 64, 48, True), (1, 31, 29, True)]
+        for N, H, W, sat in geoms:
+            if sat:
+                qg = torch.from_numpy(grng.choice(
+                    np.int8([-128, 127, 0]), (N, 3, H, W))).to(dev)
+                wg = grng.choice(np.int8([-128, 127, -127]), (64, 3, 7, 7))
+                fg = grng.uniform(2e-5, 6e-5, 64)
+            else:
+                xg = torch.from_numpy(grng.normal(0, 1, (N, 3, H, W)).astype(
+                    np.float32)).to(dev)
+                sg = float(xg.abs().max()) / 127.0
+                qg = quantize_input(xg, sg)
+                wg = grng.integers(-128, 128, (64, 3, 7, 7))
+                fg = grng.uniform(0.001, 0.01, 64)
+            wg = torch.from_numpy(wg.astype(np.int8)).to(dev)
+            fg = torch.from_numpy(fg.astype(np.float32)).to(dev)
+            bg = torch.from_numpy(grng.integers(-5000, 5000, 64).astype(
+                np.int32)).to(dev)
+            for pool in (True, False):
+                want = stem_conv_pool_int8_plain(qg, wg, bg, fg, pool)
+                for wk in (wg, pack_stem_weight(wg)):
+                    if not torch.equal(stem_conv_pool_int8(
+                            qg, wk, bg, fg, pool), want):
+                        fail(f"K10 {'pooled' if pool else 'unpooled'} "
+                             f"differs from its plain version at "
+                             f"{(N, H, W)}{' saturated' if sat else ''}, "
+                             f"weight {list(wk.shape)}")
+                if pool and not sat and not torch.equal(
+                        want, stem_conv_pool(xg, wg, bg, fg, sg)):
+                    fail(f"K10 differs from K1 at {(N, H, W)}")
+    print(f"K10 pooled equals K1 on the fp32 images it came from; pooled "
+          f"and unpooled equal the plain version, OIHW and packed weight, "
+          f"at {', '.join(str(g[:3]) for g in geoms if not g[3])} and "
+          f"saturated at {', '.join(str(g[:3]) for g in geoms if g[3])}  "
+          f"({label})")
 
     # ---- 17. the int8 stream ----------------------------------------------
     qengine = InferenceEngine(model, device="cuda")
@@ -1239,12 +1287,17 @@ def main() -> None:
           f"finite, bit-identical to the plain path on the card, to the "
           f"fp32-input forward and (2 images) to the plain path on the CPU")
     with torch.inference_mode():
-        t_int8 = time_ms(lambda: mod(q0), 10)
-        t_fp32 = time_ms(lambda: mod(x0), 10)
+        # in the order fp32, int8, int8, fp32
+        t_fp32 = [time_ms(lambda: mod(x0), 10)]
+        t_int8 = [time_ms(lambda: mod(q0), 10) for _ in range(2)]
+        t_fp32.append(time_ms(lambda: mod(x0), 10))
     print(f"int8 stream: {qres.images_per_s:.1f} img/s over batches 2-3 "
           f"(CUDA events, host quantize and pinned upload included); "
-          f"forward batch {BATCH} on the card: int8 input {t_int8:.3f} ms, "
-          f"fp32 input {t_fp32:.3f} ms (median of 10)  ({label})")
+          f"forward batch {BATCH} on the card: int8 input "
+          f"{t_int8[0]:.4f} / {t_int8[1]:.4f} ms, fp32 input "
+          f"{t_fp32[0]:.4f} / {t_fp32[1]:.4f} ms (median of 10 each, in "
+          f"the order fp32, int8, int8, fp32): int8 / fp32 "
+          f"{sum(t_int8) / sum(t_fp32):.3f}  ({label})")
     del qengine
 
     # ---- 18. K6 at the stem's batch, ties, odd batches ------------------
@@ -1689,20 +1742,21 @@ def main() -> None:
             r = probes.chain_rate(kind, dev, time_ms)
             print(f"probe chain_rate {kind}: {r['steps_per_s'] / 1e12:.3f} "
                   f"T steps/s over {r['threads']} threads  ({label})")
-        # K10's scalar tile (stem_tile.cuh) on K1's fp32 input: equal to
-        # K1's output, timed beside K10, which runs the same tile
-        stem_args = (x0, st.weight, st.bias, st.factors, s_in)
+        # the stem's tensor-core tile (stem_mma_tile.cuh), pooled on K1's
+        # fp32 input: whole, equal to K1's output; timed beside K1 and K10
+        stem_args = (x0, mod.stem_k1_w, st.bias, st.factors, s_in)
         if not torch.equal(probes.stem_ablation(*stem_args, "full"), k1):
-            fail("K10's scalar tile with no stage knocked out differs from "
-                 "K1")
-        k10_ms = time_ms(lambda: stem_conv_pool_int8(
-            q0, st.weight, st.bias, st.factors, pool=True), 10)
+            fail("the stem tile probe with no stage knocked out differs "
+                 "from K1")
+        k1_ms = time_ms(lambda: stem_conv_pool(*stem_args), 10)
+        k10_pool_ms = time_ms(lambda: stem_conv_pool_int8(
+            q0, mod.stem_k1_w, st.bias, st.factors, pool=True), 10)
         abl = {mode: time_ms(lambda: probes.stem_ablation(*stem_args, mode),
                              10) for mode in probes.STEM_MODES}
         for mode, ms in abl.items():
-            print(f"probe K10 scalar tile {mode:10s}: {ms:.4f} ms at batch "
-                  f"{BATCH}, fp32 input (K10 pooled {k10_ms:.4f} ms)  "
-                  f"({label})")
+            print(f"probe stem mma tile {mode:10s}: {ms:.4f} ms at batch "
+                  f"{BATCH}, fp32 input (K1 {k1_ms:.4f} ms, K10 pooled "
+                  f"{k10_pool_ms:.4f} ms)  ({label})")
         a_box = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
             -128, 128, (300, 64)).astype(np.int8)).to(dev)
         for xk in (0, 16, 48):
@@ -1722,11 +1776,12 @@ def main() -> None:
     print(f"probe tma_box: 16 x 128 boxes at x = 0, 16, 48 equal the plain "
           f"version; at x = 14 the load faults (illegal instruction, in a "
           f"process of its own)  ({label})")
-    print(f"K10 scalar tile split at batch {BATCH}: input loads + quantize "
-          f"(full - no_loads) {abl['full'] - abl['no_loads']:.4f} ms, dots "
-          f"+ pool (full - stage_only) "
-          f"{abl['full'] - abl['stage_only']:.4f} ms, pool epilogue (full - "
-          f"no_pool) {abl['full'] - abl['no_pool']:.4f} ms, staging alone "
+    print(f"stem mma tile split at batch {BATCH} (K1's instantiation): "
+          f"input loads (full - no_loads) "
+          f"{abl['full'] - abl['no_loads']:.4f} ms, GEMM + epilogue + pool "
+          f"(full - stage_only) {abl['full'] - abl['stage_only']:.4f} ms, "
+          f"conv tile + pool over the unpooled epilogue (full - no_pool) "
+          f"{abl['full'] - abl['no_pool']:.4f} ms, staging alone "
           f"{abl['stage_only']:.4f} ms  ({label})")
 
     total = {name: launches[name] + launches50[name] + slaunches[name]

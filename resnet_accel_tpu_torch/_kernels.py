@@ -99,7 +99,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("stem_int8", "stem_int8_launch",
                "resnet_accel_tpu_torch/csrc/stem_int8.cu",
                "resnet_accel_tpu/ops/fused_stem.py:82",
-               [_P] * 5 + [_I] * 6 + [_P]),
+               [_P] * 5 + [_I] * 7 + [_P]),
         Kernel("stem_pack", "stem_pack_launch",
                "resnet_accel_tpu_torch/csrc/stem_pack.cu",
                "resnet_accel_tpu/ops/stem_pack.py:142",

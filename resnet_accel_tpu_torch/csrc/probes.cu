@@ -17,9 +17,10 @@
 //   max), or the f32 requant step ``clamp(rint(f * m), lo, hi)`` with
 //   __fmul_rn and rintf (K7's and the requant epilogues' arithmetic).
 // - stem_probe_kernel (stem_stage_probe.py::main, stem_ring_probe.py's
-//   epilogue_cost and staging_cost): K1's pooled tile (stem_tile.cuh)
-//   with stages knocked out at compile time (stem::Ablate).  Mode 0 is the
-//   full tile, K1's own code under another name.
+//   epilogue_cost and staging_cost): the stem's tensor-core tile
+//   (stem_mma_tile.cuh), pooled on fp32 input as K1 runs it, with stages
+//   knocked out at compile time (stem_mma::Mode).  Mode 0 is the full
+//   tile, K1's own code under another name.
 // - tma_box_kernel: one TMA tiled load of a 16-byte x 128-row box of an
 //   int8 [M, K] map with no swizzle, at inner coordinate x -- the load K4's
 //   small-block path could not use: on the H100 an x off 16 bytes faults
@@ -32,7 +33,7 @@
 
 #include "mma_s8.cuh"
 #include "sm90_gemm_s8.cuh"
-#include "stem_tile.cuh"
+#include "stem_mma_tile.cuh"
 
 namespace {
 
@@ -108,34 +109,16 @@ __global__ void chain_kernel(const int* __restrict__ x, int n, int c,
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(stem::kThreads)
-stem_probe_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+__global__ void __launch_bounds__(stem_mma::kThreads, stem_mma::kCtasPerSm)
+stem_probe_kernel(const float* __restrict__ x, const int* __restrict__ wp,
                   const int32_t* __restrict__ bias,
                   const float* __restrict__ factors,
                   int8_t* __restrict__ out, int H, int W, int Hc, int Wc,
-                  int Hp, int Wp, float scale) {
-  stem::stem_tile<float, true, kMode>(x, w, bias, factors, out, H, W, Hc,
-                                      Wc, Hp, Wp, scale);
-}
-
-template <int kMode>
-int stem_probe(const void* x, const void* w, const void* bias,
-               const void* factors, void* out, int64_t N, int64_t H,
-               int64_t W, int64_t Hp, int64_t Wp, float scale,
-               cudaStream_t stream) {
-  constexpr size_t kSmem = stem::Tile<true>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_probe_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stem_probe_kernel<kMode><<<stem::grid<true>(N, Hp, Wp), stem::kThreads,
-                             kSmem, stream>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(bias), static_cast<const float*>(factors),
-      static_cast<int8_t*>(out), static_cast<int>(H), static_cast<int>(W),
-      stem::conv_out(H), stem::conv_out(W), static_cast<int>(Hp),
-      static_cast<int>(Wp), scale);
-  return static_cast<int>(cudaGetLastError());
+                  int Hp, int Wp, int tiles_w, int tiles_img, int tiles,
+                  float scale, bool pairs) {
+  stem_mma::stem_tile<float, true, kMode>(x, wp, bias, factors, out, H, W,
+                                          Hc, Wc, Hp, Wp, tiles_w, tiles_img,
+                                          tiles, scale, pairs);
 }
 
 constexpr int kBoxK = 16, kBoxM = 128;
@@ -219,26 +202,31 @@ extern "C" int chain_launch(const void* x, void* out, int64_t threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's launch with a stage mode (stem::Ablate).
-extern "C" int stem_probe_launch(const void* x, const void* w,
+// K1's launch with a stage mode (stem_mma::Mode): wp the packed [64, 192]
+// weight, ctas as stem_fused_launch takes them.
+extern "C" int stem_probe_launch(const void* x, const void* wp,
                                  const void* bias, const void* factors,
                                  void* out, int64_t N, int64_t H, int64_t W,
-                                 int64_t Hp, int64_t Wp, float scale,
-                                 int64_t mode, void* stream) {
+                                 int64_t Hp, int64_t Wp, int64_t ctas,
+                                 float scale, int64_t mode, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case stem::kFull:
-      return stem_probe<stem::kFull>(x, w, bias, factors, out, N, H, W, Hp,
-                                     Wp, scale, s);
-    case stem::kStageOnly:
-      return stem_probe<stem::kStageOnly>(x, w, bias, factors, out, N, H, W,
-                                          Hp, Wp, scale, s);
-    case stem::kNoLoads:
-      return stem_probe<stem::kNoLoads>(x, w, bias, factors, out, N, H, W,
-                                        Hp, Wp, scale, s);
-    case stem::kNoPool:
-      return stem_probe<stem::kNoPool>(x, w, bias, factors, out, N, H, W,
-                                       Hp, Wp, scale, s);
+    case stem_mma::kFull:
+      return stem_mma::launch<true>(stem_probe_kernel<stem_mma::kFull>, x, wp,
+                                    bias, factors, out, N, H, W, Hp, Wp, ctas,
+                                    scale, false, s);
+    case stem_mma::kStageOnly:
+      return stem_mma::launch<true>(stem_probe_kernel<stem_mma::kStageOnly>,
+                                    x, wp, bias, factors, out, N, H, W, Hp,
+                                    Wp, ctas, scale, false, s);
+    case stem_mma::kNoLoads:
+      return stem_mma::launch<true>(stem_probe_kernel<stem_mma::kNoLoads>, x,
+                                    wp, bias, factors, out, N, H, W, Hp, Wp,
+                                    ctas, scale, false, s);
+    case stem_mma::kNoPool:
+      return stem_mma::launch<true>(stem_probe_kernel<stem_mma::kNoPool>, x,
+                                    wp, bias, factors, out, N, H, W, Hp, Wp,
+                                    ctas, scale, false, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

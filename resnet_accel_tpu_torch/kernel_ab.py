@@ -1,5 +1,5 @@
-"""K1's, K2's, K3's, K4's and K5's times at the served shapes, for an A/B
-of two checkouts of this package in one call on the card.
+"""K1's, K2's, K3's, K4's, K5's and K10's times at the served shapes, for
+an A/B of two checkouts of this package in one call on the card.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo P --repo C --repo C \\
         --repo P [--iters 20] [--cases K1,K2]
@@ -18,7 +18,9 @@ weights, block masks drawn at the stated sparsity, normal q, k, v.
 The cases (``--cases`` keeps those whose name starts with one of the
 prefixes given): K1 at ResNet-18's stem, batch 128, 224 x 224 (normal
 fp32 images, int8 weights; the packed weight where the checkout has
-``pack_stem_weight``, as its model serves it); K3 at ResNet-18's and
+``pack_stem_weight``, as its model serves it); K10 at the same stem on
+those images quantized, pooled and unpooled (the packed weight where the
+checkout's K10 takes it; ``--cases K1`` keeps K10 too); K3 at ResNet-18's and
 ResNet-50's fc (M 128, K 512 and 2048, N
 1000, int32) and the MNIST CNN's dense fc1 (K 9216, N 128, requant and
 ReLU) and fc2 (K 128, N 10); K4 at 128 x 128 blocks at the MNIST fc1
@@ -57,12 +59,16 @@ chunk size (key tiles a CTA) forced in place of ``flash_plan``'s.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo C --ablate
 
-times K1 at its batch-128 case, K2 at ResNet-18's 19 convs, K4's
+times K1 and K10 at their batch-128 cases, K2 at ResNet-18's 19 convs, K4's
 small-block path at its four 14 x 14 cases and K5 at the prefill on the
 checkout and on copies of its package with one part knocked out
 (``ABLATIONS``; the copies are built under the checkout's
 ``resnet_accel_tpu_torch/_build/``): what the part costs, not a result.
-With ``--cases K1`` only K1 and its ablations run (``--cases K4``: K4's).
+With ``--cases K1`` only K1, K10 and K1's ablations run (``--cases
+K1,K10``: K10's too; ``--cases K4``: K4's).  The stem's ablations edit the
+tile K1 and K10 share (``csrc/stem_mma_tile.cuh``), so each reaches both
+but ``k1_no_loads`` (fp32 loads), ``k10_no_loads`` (int8 loads) and
+``k10_no_requant`` (unpooled K10's requant).
 Needs a card; exits non-zero without one.
 """
 
@@ -78,25 +84,46 @@ import time
 #: Parts of a kernel knocked out for ``--ablate``: (source under csrc/,
 #: text, replacement) edits, each of which must apply once.
 ABLATIONS = {
-    # K1's GEMM steps become an XOR of their operands: the A loads and the
-    # B registers stay, the tensor-core work goes
+    # The stem tile's GEMM steps become an XOR of their operands: the A
+    # loads and the B registers stay, the tensor-core work goes
     "k1_no_mma": [
-        ("stem_fused.cu",
+        ("stem_mma_tile.cuh",
          "for (int j = 0; j < 4; ++j) mma_s8(acc[j], a, b[j][s][0], "
          "b[j][s][1]);",
          "for (int j = 0; j < 4; ++j) acc[j][0] ^= a[0] ^ a[1] ^ a[2] ^ "
          "a[3] ^ b[j][s][0] ^ b[j][s][1];"),
     ],
-    # K1's pool reads the centre column of each conv row only: a third of
+    # The pool reads the centre column of each conv row only: a third of
     # its shared-memory reads
     "k1_pool_one_col": [
-        ("stem_fused.cu", "for (int dc = 0; dc < 3; ++dc)",
+        ("stem_mma_tile.cuh", "for (int dc = 0; dc < 3; ++dc)",
          "for (int dc = 1; dc < 2; ++dc)"),
     ],
     # K1 stages a pattern in place of the input's loads (quantize stays)
     "k1_no_loads": [
-        ("stem_fused.cu", "? __ldg(xp + (d / 2) * W + d % 2)",
-         "? static_cast<float>((e + d) & 15)"),
+        ("stem_mma_tile.cuh",
+         "? __ldg(xp + (d / 2) * W + d % 2)\n                      : 0.f;",
+         "? static_cast<float>((e + d) & 15)\n                      : 0.f;"),
+    ],
+    # K10 stages a pattern in place of the input's loads, 16-bit and byte
+    "k10_no_loads": [
+        ("stem_mma_tile.cuh",
+         "? __ldg(reinterpret_cast<const uint16_t*>(xp + d * W))",
+         "? static_cast<uint32_t>((e + d) & 0x0f0f)"),
+        ("stem_mma_tile.cuh",
+         "? __ldg(xp + (d / 2) * W + d % 2)\n                      : 0;",
+         "? (e + d) & 15\n                      : 0;"),
+    ],
+    # Unpooled K10's epilogue with a shift in place of each output's
+    # requant (the int8 tile and its stores stay)
+    "k10_no_requant": [
+        ("stem_mma_tile.cuh",
+         "const int q0 = requant_i8(max(acc[j][2 * h] + bs[o], 0), fs[o]);\n"
+         "            const int q1 =\n"
+         "                requant_i8(max(acc[j][2 * h + 1] + bs[o + 1], 0), "
+         "fs[o + 1]);",
+         "const int q0 = max(acc[j][2 * h] + bs[o], 0) >> 8;\n"
+         "            const int q1 = max(acc[j][2 * h + 1] + bs[o + 1], 0) >> 8;"),
     ],
     # K2 sums and loads as it does, but stores nothing: its main loop alone
     "k2_no_epilogue": [
@@ -225,10 +252,13 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
     def want(kernel):
         return not cases or any(kernel.startswith(c) for c in cases)
 
-    # ---- K1 ----
+    # ---- K1, K10 ----
     if want("K1"):
         emit(K1_CASE, _time_ms(torch, _k1_call(torch, ops, dev), iters),
              plan_of("stem_plan", 128, 224, 224, _kernels.sm_count(dev)))
+    for pool in (True, False) if want("K10") else ():
+        fn, plan = _k10_call(torch, ops, dev, pool)
+        emit(K10_CASES[pool], _time_ms(torch, fn, iters), plan)
 
     # ---- K3 ----
     for case, M, K, N, requant in (("fc512", 128, 512, 1000, False),
@@ -318,23 +348,45 @@ def _r18_forwards(repo, iters, emit):
 
 
 K1_CASE = "K1 stem batch 128 224x224"
+K10_CASES = {True: "K10 stem pooled batch 128 224x224",
+             False: "K10 stem unpooled batch 128 224x224"}
 
 
-def _k1_call(torch, ops, dev):
-    """One K1 call at ResNet-18's stem, batch 128, 224 x 224: seeded normal
-    images and int8 weights, packed where the checkout packs them."""
+def _stem_inputs(torch, dev):
+    """ResNet-18's stem at batch 128, 224 x 224: seeded normal images, int8
+    OIHW weights, bias, factors and the input scale."""
     import numpy as np
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(0, 1, (128, 3, 224, 224)).astype(
         np.float32)).to(dev)
     w = torch.from_numpy(rng.integers(-128, 128, (64, 3, 7, 7)).astype(
         np.int8)).to(dev)
-    pack = getattr(ops, "pack_stem_weight", None)       # older checkouts
-    wk = w if pack is None else pack(w)
     bias = torch.randint(-5000, 5000, (64,), dtype=torch.int32, device=dev)
     f = torch.full((64,), 4e-3, device=dev)
-    scale = float(x.abs().max()) / 127.0
+    return x, w, bias, f, float(x.abs().max()) / 127.0
+
+
+def _k1_call(torch, ops, dev):
+    """One K1 call at the stem, on the weight packed where the checkout
+    packs it."""
+    x, w, bias, f, scale = _stem_inputs(torch, dev)
+    pack = getattr(ops, "pack_stem_weight", None)       # older checkouts
+    wk = w if pack is None else pack(w)
     return lambda: ops.stem_conv_pool(x, wk, bias, f, scale)
+
+
+def _k10_call(torch, ops, dev, pool):
+    """One K10 call at the stem on K1's images quantized, and its plan: the
+    packed weight and the plan where the checkout's K10 runs the tensor-core
+    tile, else the OIHW weight and no plan."""
+    x, w, bias, f, scale = _stem_inputs(torch, dev)
+    q = ops.quantize_input(x, scale)
+    plan = None
+    if hasattr(ops.stem_fused, "STEM_CONV_TILE"):
+        w = ops.pack_stem_weight(w)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = str(ops.stem_plan(128, 224, 224, sms, pool))
+    return (lambda: ops.stem_conv_pool_int8(q, w, bias, f, pool=pool)), plan
 
 
 def _k2_call(torch, ops, rng, dev, depth, name, C, O, H, k, s):
@@ -476,8 +528,9 @@ def _ablated(repo: str, name: str) -> str:
 
 def _ablation_run(repo: str, iters: int, trunks, name: str,
                   cases=()) -> None:
-    """K1 at batch 128, K2 at ResNet-18's 19 convs and K5 at the prefill,
-    on ``repo``; ``cases`` as :func:`_run` takes them."""
+    """K1 and K10 at batch 128, K2 at ResNet-18's 19 convs, K4's 14 x 14
+    cases and K5 at the prefill, on ``repo``; ``cases`` as :func:`_run`
+    takes them."""
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
@@ -496,6 +549,10 @@ def _ablation_run(repo: str, iters: int, trunks, name: str,
         print(json.dumps({"ablation": name, "case": K1_CASE,
                           "ms": _time_ms(torch, _k1_call(torch, ops, dev),
                                          iters)}), flush=True)
+    for pool in (True, False) if want("K10") else ():
+        fn, _ = _k10_call(torch, ops, dev, pool)
+        print(json.dumps({"ablation": name, "case": K10_CASES[pool],
+                          "ms": _time_ms(torch, fn, iters)}), flush=True)
     for cname, stage, *shape in trunks[18] if want("K2") else ():
         fn = _k2_call(torch, ops, rng, dev, 18, cname, *shape)
         print(json.dumps({"ablation": name, "case": f"K2 resnet18 {cname}",

@@ -701,7 +701,7 @@ class ResNet18Int8Module(nn.Module):
     bit-exact with the golden ``forward_golden``.
 
     Weights are uploaded once, here, in the layouts the kernels read: the
-    ImageNet stem's as OIHW (K10) and packed for K1 (``stem_k1_w``), the
+    ImageNet stem's as OIHW and packed for K1 and K10 (``stem_k1_w``), the
     trunk's conv weights channels-last (a 1x1 c3's is then [O, C]
     row-major, as K7 reads it), the fc weight as [512 or 2048, classes].
 
@@ -729,8 +729,7 @@ class ResNet18Int8Module(nn.Module):
             stem_w = torch.from_numpy(np.ascontiguousarray(
                 stem.w2d.reshape(-1, stem.in_channels, 7, 7))).to(device)
         self.stem = Int8Conv(stem, stem_w, device)
-        # K1's [64, 192] B operand, packed once here (K10 reads the OIHW
-        # stem.weight)
+        # K1's and K10's [64, 192] B operand, packed once here
         self.register_buffer("stem_k1_w", None if self.small_input
                              else pack_stem_weight(stem_w))
         self.stem_s2d_w = None
@@ -790,7 +789,7 @@ class ResNet18Int8Module(nn.Module):
             a = maxpool2d_int8(a, 3, 2, padding=1).contiguous(
                 memory_format=cl)
         elif int8_in:
-            a = stem_int8(x, st.weight, st.bias, st.factors)
+            a = stem_int8(x, self.stem_k1_w, st.bias, st.factors)
         else:
             a = stem(x, self.stem_k1_w, st.bias, st.factors, self.s_input)
         for convs, rs in zip(self.blocks, self.res_scales):

@@ -33,28 +33,37 @@ from resnet_accel_tpu_torch.ops.pooling import maxpool2d_int8
 STEM_OUT = 64
 #: K bytes of an output in the kernel's GEMM: 16 taps x 12 s2d channels.
 STEM_K = 192
-#: The kernel's tile, in pooled outputs (rows, cols): 15 x 17 = 255 conv
-#: positions, 16 m16 tiles (``csrc/stem_fused.cu``).
+#: The tensor-core tile of K1 and pooled K10, in pooled outputs (rows,
+#: cols): 15 x 17 = 255 conv positions, 16 m16 tiles
+#: (``csrc/stem_mma_tile.cuh``).
 STEM_TILE = (7, 8)
-#: Persistent CTAs an SM (the kernel's ``kCtasPerSm``: its 80 KB of
-#: shared memory fit two).
+#: Unpooled K10's tile, in conv outputs: 256 positions, no pad row.
+STEM_CONV_TILE = (16, 16)
+#: Persistent CTAs an SM (the tile's ``kCtasPerSm``: its 128 registers a
+#: thread, and K1's 80 KB of shared memory, fit two).
 STEM_CTAS_PER_SM = 2
+
+
+def stem_conv_hw(H: int, W: int):
+    """Output size of the 7x7/s2/p3 conv."""
+    return (H - 1) // 2 + 1, (W - 1) // 2 + 1
 
 
 def stem_out_hw(H: int, W: int):
     """Pooled output size of the 7x7/s2/p3 conv + 3x3/s2/p1 pool."""
-    hc, wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    hc, wc = stem_conv_hw(H, W)
     return (hc - 1) // 2 + 1, (wc - 1) // 2 + 1
 
 
-def stem_plan(N: int, H: int, W: int, sms: int = _kernels.H100_SMS
-              ) -> Tuple[int, int]:
-    """(tiles, CTAs) of one K1 call: the (image, tile) list the persistent
-    CTAs walk, and its grid, :data:`STEM_CTAS_PER_SM` an SM of ``sms`` at
-    most."""
-    Hp, Wp = stem_out_hw(H, W)
-    th, tw = STEM_TILE
-    tiles = N * (-(-Hp // th)) * (-(-Wp // tw))
+def stem_plan(N: int, H: int, W: int, sms: int = _kernels.H100_SMS,
+              pool: bool = True) -> Tuple[int, int]:
+    """(tiles, CTAs) of one K1 call, or K10 call with ``pool``: the (image,
+    tile) list the persistent CTAs walk (:data:`STEM_TILE` of the pooled
+    output, or :data:`STEM_CONV_TILE` of the conv's), and its grid,
+    :data:`STEM_CTAS_PER_SM` an SM of ``sms`` at most."""
+    Ho, Wo = stem_out_hw(H, W) if pool else stem_conv_hw(H, W)
+    th, tw = STEM_TILE if pool else STEM_CONV_TILE
+    tiles = N * (-(-Ho // th)) * (-(-Wo // tw))
     return tiles, min(tiles, STEM_CTAS_PER_SM * sms)
 
 
@@ -78,8 +87,20 @@ def unpack_stem_weight(packed: torch.Tensor) -> torch.Tensor:
     return w.reshape(O, 3, 8, 8)[:, :, 1:, 1:].contiguous()
 
 
-def _oihw(weight: torch.Tensor) -> torch.Tensor:
+def stem_oihw(weight: torch.Tensor) -> torch.Tensor:
+    """The OIHW [64, 3, 7, 7] form of either weight the stem takes."""
     return unpack_stem_weight(weight) if weight.dim() == 2 else weight
+
+
+def stem_packed(weight: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The kernels' [64, 192] B operand on ``device``, checked: the packed
+    weight as it is, or the OIHW [64, 3, 7, 7] one packed here."""
+    if weight.dim() == 4:
+        _kernels.check(weight, "weight", torch.int8, (STEM_OUT, 3, 7, 7),
+                       device)
+        weight = pack_stem_weight(weight)
+    _kernels.check(weight, "weight", torch.int8, (STEM_OUT, STEM_K), device)
+    return weight
 
 
 def stem_conv_pool_plain(
@@ -92,7 +113,7 @@ def stem_conv_pool_plain(
     """Plain PyTorch version: the golden composition.  ``weight`` as
     :func:`stem_conv_pool` takes it."""
     a = quantize_input(x, scale)
-    a = conv2d_int8_plain(a, _oihw(weight), bias, factors, stride=2,
+    a = conv2d_int8_plain(a, stem_oihw(weight), bias, factors, stride=2,
                           padding=3, relu=True)
     return maxpool2d_int8(a, 3, 2, padding=1)
 
@@ -116,11 +137,7 @@ def stem_conv_pool(
     Hp, Wp = stem_out_hw(H, W)
     dev = x.device
     _kernels.check(x, "x", torch.float32, (N, 3, H, W), dev)
-    if weight.dim() == 4:
-        _kernels.check(weight, "weight", torch.int8, (STEM_OUT, 3, 7, 7),
-                       dev)
-        weight = pack_stem_weight(weight)
-    _kernels.check(weight, "weight", torch.int8, (STEM_OUT, STEM_K), dev)
+    weight = stem_packed(weight, dev)
     _kernels.check(bias, "bias", torch.int32, (STEM_OUT,), dev)
     _kernels.check(factors, "factors", torch.float32, (STEM_OUT,), dev)
     out = torch.empty((N, STEM_OUT, Hp, Wp), dtype=torch.int8, device=dev,

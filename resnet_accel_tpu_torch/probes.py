@@ -16,8 +16,8 @@ ms`` the caller gives (``chip_smoke.py``'s CUDA-event timer):
   chains of int32 ``max`` and of the f32 requant step, steps/s.
 - :func:`stem_ablation` (``stem_stage_probe.py::main``,
   ``stem_ring_probe.py``'s ``epilogue_cost`` and ``staging_cost``): the
-  scalar stem tile of ``csrc/stem_tile.cuh`` (K10's) on K1's fp32 inputs,
-  with stages knocked out.
+  stem's tensor-core tile (``csrc/stem_mma_tile.cuh``, K1's and K10's)
+  pooled on K1's fp32 inputs, with stages knocked out.
 - :func:`tma_box` (no TPU counterpart; K4's small-block path rests on
   it): one TMA tiled load of a 16-byte x 128-row box at an inner
   coordinate ``x``.  Equal to :func:`tma_box_plain` where ``x`` is a
@@ -35,14 +35,17 @@ import numpy as np
 import torch
 
 from resnet_accel_tpu_torch import _kernels
-from resnet_accel_tpu_torch.ops.stem_fused import STEM_OUT, stem_out_hw
+from resnet_accel_tpu_torch.ops.stem_fused import (STEM_OUT, stem_out_hw,
+                                                   stem_packed, stem_plan)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 
 #: The tile's width (N) of the dot probe.
 MMA_N = 64
-#: The scalar tile's stages a probe keeps (``stem::Ablate`` in
-#: ``csrc/stem_tile.cuh``).
+#: The stem tile's stages a probe keeps (``stem_mma::Mode`` in
+#: ``csrc/stem_mma_tile.cuh``): everything; the staging alone; all but
+#: the input's loads; the unpooled epilogue (a requant of each conv value
+#: into an int8 tile) in place of the int32 conv tile and the pool.
 STEM_MODES = {"full": 0, "stage_only": 1, "no_loads": 2, "no_pool": 3}
 #: Chain kinds of :func:`chain`: int32 ``v = max(v, u + c)``; the f32
 #: requant step ``clamp(rint(f * m), lo, hi)``.
@@ -126,21 +129,26 @@ def chain_plain(x: torch.Tensor, n: int, kind: str, c: int = -1,
 def stem_ablation(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   factors: torch.Tensor, scale: float,
                   mode: str) -> torch.Tensor:
-    """The scalar stem tile on ``stem_conv_pool``'s arguments (the OIHW
-    weight) with the stages of ``mode`` (:data:`STEM_MODES`) only; "full"
-    computes K1's output, the others are for their time alone."""
+    """The stem tile, pooled on fp32 input, on ``stem_conv_pool``'s
+    arguments (either weight) with the stages of ``mode``
+    (:data:`STEM_MODES`) only; "full" computes K1's output, the others are
+    for their time alone."""
     _cuda(x, "stem_ablation")
     N, _, H, W = x.shape
     Hp, Wp = stem_out_hw(H, W)
     dev = x.device
     _kernels.check(x, "x", torch.float32, (N, 3, H, W), dev)
-    _kernels.check(weight, "weight", torch.int8, (STEM_OUT, 3, 7, 7), dev)
+    weight = stem_packed(weight, dev)
     out = torch.empty((N, STEM_OUT, Hp, Wp), dtype=torch.int8, device=dev,
                       memory_format=torch.channels_last)
+    tiles, ctas = stem_plan(N, H, W, _kernels.sm_count(dev))
+    if tiles == 0:
+        return out
     _kernels.launch_probe(
-        "stem_probe_launch", [_P] * 5 + [_I] * 5 + [_F, _I], dev,
+        "stem_probe_launch", [_P] * 5 + [_I] * 6 + [_F, _I], dev,
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), factors.data_ptr(),
-        out.data_ptr(), N, H, W, Hp, Wp, float(scale), STEM_MODES[mode])
+        out.data_ptr(), N, H, W, Hp, Wp, ctas, float(scale),
+        STEM_MODES[mode])
     return out
 
 

@@ -776,11 +776,28 @@ def test_sparse_conv_block_shapes(cuda, N, C, O, H, k, stride, block_c,
                                                           stride=stride))
 
 
-# K10 at ResNet-18's stem (224) and at a size whose pooled output (58) and
-# conv output (116) are not multiples of the tiles; pooled, it equals K1 on
-# the fp32 images the int8 ones came from.
+def _stem_int8(q, w, bias, f, pool):
+    """K10 on the OIHW weight and on its packed form, each one launch: both
+    the plain version's bits; returns the output."""
+    want = ops.stem_conv_pool_int8_plain(q, w, bias, f, pool)
+    for weight in (w, ops.pack_stem_weight(w)):
+        before = _kernels.launch_counts()["stem_int8"]
+        got = ops.stem_conv_pool_int8(q, weight, bias, f, pool=pool)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["stem_int8"] == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want)
+    return got
+
+
+# K10 at ResNet-18's stem (224), at a size whose pooled output (58) and
+# conv output (116) are not multiples of the tiles, at ragged and odd sizes
+# (odd W takes the byte loads, even W the 16-bit ones) and at a batch of
+# 12 at 224 x 224 (every persistent CTA walks more than two tiles); pooled,
+# it equals K1 on the fp32 images the int8 ones came from.
 @pytest.mark.parametrize("N,H,W", [(2, 224, 224), (2, 232, 232),
-                                   (1, 37, 50)])
+                                   (1, 37, 50), (1, 28, 16), (1, 31, 29),
+                                   (12, 224, 224)])
 @pytest.mark.parametrize("pool", [True, False])
 def test_stem_int8(cuda, N, H, W, pool):
     rng = np.random.default_rng(H + W)
@@ -790,15 +807,66 @@ def test_stem_int8(cuda, N, H, W, pool):
     f = _t(rng.uniform(0.001, 0.01, 64).astype(np.float32), cuda)
     scale = float(x.abs().max().item() / 127.0)
     q = ops.quantize_input(x, scale)
-    before = _kernels.launch_counts()["stem_int8"]
-    got = ops.stem_conv_pool_int8(q, w, bias, f, pool=pool)
-    torch.cuda.synchronize()
-    assert _kernels.launch_counts()["stem_int8"] == before + 1
-    assert got.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(got, ops.stem_conv_pool_int8_plain(q, w, bias, f,
-                                                           pool))
+    if N == 12:
+        tiles, ctas = ops.stem_plan(N, H, W, _kernels.sm_count(cuda), pool)
+        assert tiles > 2 * ctas
+    got = _stem_int8(q, w, bias, f, pool)
     if pool:
         assert torch.equal(got, ops.stem_conv_pool(x, w, bias, f, scale))
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 64, 48), (1, 31, 29)])
+@pytest.mark.parametrize("pool", [True, False])
+def test_stem_int8_saturated(cuda, N, H, W, pool):
+    """Inputs of -128 and 127 against weights of -128, 127 and -127: the
+    largest sums the int8 GEMM can form."""
+    rng = np.random.default_rng(W + pool)
+    q = _t(rng.choice(np.int8([-128, 127, 0]), (N, 3, H, W)), cuda)
+    w = _t(rng.choice(np.int8([-128, 127, -127]), (64, 3, 7, 7)), cuda)
+    bias = _t(rng.integers(-5000, 5000, 64).astype(np.int32), cuda)
+    # |acc| <= 147 * 128 * 128: factors that keep the requant in range
+    f = _t(rng.uniform(2e-5, 6e-5, 64).astype(np.float32), cuda)
+    _stem_int8(q, w, bias, f, pool)
+
+
+@pytest.mark.parametrize("pool", [True, False])
+def test_stem_int8_odd_address(cuda, pool):
+    """Images at an odd address (a view one byte into a buffer): even W,
+    but the 16-bit row loads would be misaligned, so the bytes path."""
+    rng = np.random.default_rng(7)
+    N, H, W = 2, 40, 36
+    buf = _t(_i8(rng, (N * 3 * H * W + 1,)), cuda)
+    q = buf[1:].view(N, 3, H, W)
+    assert q.data_ptr() % 2 == 1
+    w = _t(_i8(rng, (64, 3, 7, 7)), cuda)
+    bias = _t(rng.integers(-5000, 5000, 64).astype(np.int32), cuda)
+    f = _t(rng.uniform(0.001, 0.01, 64).astype(np.float32), cuda)
+    _stem_int8(q, w, bias, f, pool)
+
+
+def test_int8_forward(cuda):
+    """The int8-input forward (K10 on the packed weight, never K1) gives
+    the logits of the fp32-input forward of the images it came from and of
+    the plain path."""
+    from resnet_accel_tpu_torch.models.resnet18 import (
+        ResNet18Int8Module, init_resnet18_fp32, quantize_resnet18)
+    stages = [(64, 1, 1), (128, 1, 2)]
+    rng = np.random.default_rng(2)
+    params = init_resnet18_fp32(seed=0, num_classes=10, stages=stages)
+    model = quantize_resnet18(params, rng.normal(0, 1, (2, 3, 64, 64)).astype(
+        np.float32), 10, stages=stages)
+    mod = ResNet18Int8Module(model, cuda)
+    x = _t(rng.normal(0, 1, (4, 3, 64, 64)).astype(np.float32), cuda)
+    q = ops.quantize_input(x, mod.s_input)
+    before = _kernels.launch_counts()
+    with torch.inference_mode():
+        got = mod(q)
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        assert after["stem_int8"] == before["stem_int8"] + 1
+        assert after["stem_fused"] == before["stem_fused"]
+        assert torch.equal(got, mod(x))
+        assert torch.equal(got, mod.forward_plain(q))
 
 
 # K6 at the stem's shape, at a ragged one, and at C = 4; odd batches.
@@ -887,8 +955,8 @@ def test_s2d_stem_equals_k1(cuda):
 
 
 def test_probes(cuda):
-    """The probe kernels against their plain versions; K1's tile with no
-    stage knocked out is K1."""
+    """The probe kernels against their plain versions; the stem tile with
+    no stage knocked out is K1, on either weight."""
     from resnet_accel_tpu_torch import probes
     rng = np.random.default_rng(3)
     for M, K in ((64, 192), (128, 576)):
@@ -908,7 +976,10 @@ def test_probes(cuda):
     for mode in probes.STEM_MODES:
         out = probes.stem_ablation(xs, w, bias, f, 0.02, mode)
         if mode == "full":
-            assert torch.equal(out, ops.stem_conv_pool(xs, w, bias, f, 0.02))
+            k1 = ops.stem_conv_pool(xs, w, bias, f, 0.02)
+            assert torch.equal(out, k1)
+            assert torch.equal(probes.stem_ablation(
+                xs, ops.pack_stem_weight(w), bias, f, 0.02, mode), k1)
     torch.cuda.synchronize()
     before["stem_fused"] += 1
     assert _kernels.launch_counts() == before
