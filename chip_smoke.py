@@ -36,12 +36,16 @@ result line) without them.  Phases, each fatal on failure:
    ``--model resnet18`` and once for ``--model resnet --depth 50``.
 5. ResNet-50 at full width and depth (seed 0, the same geometry and
    batch): walks one batch through the layers and holds K1 at the stem,
-   K2 at every c1, c2 and downsample, K7 at each of the 16 c3 (with K2's
-   time on the same c3 and join beside it, the two must agree, and
-   ``torch._int_mm``'s on the c3's product alone) and K3 at
-   the fc layer against their plain versions, bit for bit.
+   K2 at every c1, c2 and downsample, K7 at each of the 16 c3 (joined by
+   the block's proven reciprocal as served, and by the divide: each on
+   the Hopper path, ``wgmma_tma``; with K2's time on the same c3 and join
+   beside it, the two must agree, and ``torch._int_mm``'s on the c3's
+   product alone) and K3 at the fc layer against their plain versions,
+   bit for bit.  K7's time, bound, ``_int_mm`` and K2 are printed summed
+   by stage and over the 16 c3.
 6. Serve three batches of 128 of ResNet-50 through the engine, counts
-   reset just before: K1, K2, K3 and K7 must launch, K7 16 times a batch.
+   reset just before: K1, K2, K3 and K7 must launch, K7 16 times a batch,
+   every one on ``wgmma_tma``.
    The logits must be finite, [128, 1000], bit-identical to the plain path
    on the card and for two images on the CPU.  Prints img/s.
 7. Sparse ResNet-18: the ResNet-18 weights block-pruned at 0.7 with
@@ -403,7 +407,8 @@ def main() -> None:
     from resnet_accel_tpu_torch.ops import (
         add_residual, avgpool_global_int8, bsr_matmul_wt, bsr_matmul_wt_plain,
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
-        expand_add_int8_plain, flash_attention, flash_attention_plain,
+        expand_add_int8_plain, expand_plan, flash_attention,
+        flash_attention_plain,
         bsr_plan, im2col_nchw, matmul_int8, matmul_int8_plain, matmul_plan,
         maxpool2d_int8, pack_bsr, pack_stem_weight, pack_weight,
         quantize_input, quantize_s2d,
@@ -475,7 +480,7 @@ def main() -> None:
             except RuntimeError as e:   # a shape the library refuses
                 lib = f"  library refused: {str(e).splitlines()[0]}"
         last_check.update(ms=ms, plain_ms=pms, bound_ms=max(b_ms, o_ms),
-                          library_ms=lms)
+                          library_ms=lms, out=got)
         if timed:
             s["ms"] += ms
             s["plain_ms"] += pms
@@ -646,12 +651,12 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     mod50 = ResNet18Int8Module(model50, dev).eval()
     before = {k: dict(v) for k, v in stats.items()}
-    k2_c3_ms = 0.0
+    k7_stages = {}      # stage: [K7 ms, bound ms, _int_mm ms, K2 ms, c3s]
     k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
     with torch.inference_mode():
         a = stem_case(mod50)
-        for i, (convs, rs) in enumerate(zip(mod50.blocks,
-                                            mod50.res_scales)):
+        for i, (convs, rs, inv) in enumerate(zip(
+                mod50.blocks, mod50.res_scales, mod50.inv_out)):
             y = conv_case(50, f"b{i}.c1", convs["c1"], a)
             r = (conv_case(50, f"b{i}.ds", convs["ds"], a) if "ds" in convs
                  else a)
@@ -666,24 +671,72 @@ def main() -> None:
                         2 * out.numel() * C, "int8")
             # the library: the c3's product alone, [N*H*W, C] x [C, 4C]
             y2d = y.permute(0, 2, 3, 1).reshape(-1, y.shape[1])
+            k7_before = dict(_kernels.KERNELS["expand_add"].variants)
+            # as served: joined by the block's proven reciprocal, if any
             a = check("expand_add", f"b{i}.c3",
+                      lambda: expand_add_int8(*args, inv_out=inv),
+                      lambda: expand_add_int8_plain(*args, inv_out=inv),
+                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join"
+                      + (" inv" if inv is not None else " div"), work,
+                      library=int_mm_call(y2d, args[1]),
+                      plan=expand_plan(*args[:5]))
+            k7 = last_check["ms"], last_check["bound_ms"], \
+                last_check["library_ms"] or 0.0
+            if inv is not None:     # and by the divide, untimed
+                check("expand_add", f"b{i}.c3",
                       lambda: expand_add_int8(*args),
                       lambda: expand_add_int8_plain(*args),
-                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join", work,
-                      library=int_mm_call(y2d, args[1]))
+                      f"x{list(y.shape)} O{c3.weight.shape[0]} +join div",
+                      work, timed=False)
+                if not torch.equal(last_check["out"], a):
+                    fail(f"K7's two joins disagree on b{i}.c3")
+            paths_since(_kernels, "expand_add", k7_before, "wgmma_tma",
+                        f"b{i}.c3")
+            if i == 0:
+                # the residual 4 bytes off 16: TMA refuses it, so the call
+                # takes mma_sync, K7's path for such bases and channel counts
+                N, O, H, W = r.shape
+                ru = torch.empty(r.numel() + 4, dtype=torch.int8,
+                                 device=dev)[4:].view(N, H, W, O).permute(
+                                     0, 3, 1, 2)
+                ru.copy_(r)
+                argsu = (*args[:4], ru, *rs)
+                for s_inv in dict.fromkeys((inv, None)):
+                    join = "inv" if s_inv is not None else "div"
+                    before_u = dict(_kernels.KERNELS["expand_add"].variants)
+                    check("expand_add", "b0.c3u",
+                          lambda: expand_add_int8(*argsu, inv_out=s_inv),
+                          lambda: expand_add_int8_plain(*argsu,
+                                                        inv_out=s_inv),
+                          f"x{list(y.shape)} O{O} +join {join}, r off 16 B",
+                          work, timed=False, plan=expand_plan(*argsu[:5]))
+                    paths_since(_kernels, "expand_add", before_u, "mma_sync",
+                                f"b0.c3, the residual off 16 bytes, {join}")
+                    if not torch.equal(last_check["out"], a):
+                        fail(f"K7 on mma_sync != wgmma_tma at b0.c3 ({join})")
 
             def k2_c3():
                 return c3(y, conv2d_int8, residual=r, res_scales=rs)
             if not torch.equal(k2_c3(), a):
                 fail(f"K2 and K7 disagree on b{i}.c3")
             ms = time_ms(k2_c3, 10)
-            k2_c3_ms += ms
             print(f"{'':12s} b{i}.c3  K2 (k1 +join) on the same c3 "
                   f"{ms:.4f} ms  ({label})")
+            st = k7_stages.setdefault(stage_of[50][f"b{i}.c3"], [0.0] * 5)
+            for j, v in enumerate((*k7, ms, 1)):
+                st[j] += v
         fc_case(mod50, a)
     summary("ResNet-50 walk", before,
             ("stem_fused", "conv_int8", "expand_add", "matmul_int8"))
-    print(f"K2 on the 16 c3 {k2_c3_ms:.4f} ms  ({label})")
+    for stage, (ms, bnd, lib, k2ms, n) in sorted(k7_stages.items()):
+        print(f"K7 ResNet-50 stage {stage} ({n} c3): {ms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({ms / bnd:.1f}x), _int_mm {lib:.4f} ms, "
+              f"K2 +join {k2ms:.4f} ms  ({label})")
+    print(f"K7 ResNet-50, 16 c3: "
+          f"{sum(v[0] for v in k7_stages.values()):.4f} ms, bound "
+          f"{sum(v[1] for v in k7_stages.values()):.4f} ms, _int_mm "
+          f"{sum(v[2] for v in k7_stages.values()):.4f} ms, K2 +join "
+          f"{sum(v[3] for v in k7_stages.values()):.4f} ms  ({label})")
     paths_since(_kernels, "conv_int8", k2_before, "wgmma_tma",
                 "the ResNet-50 walk")
     k2_stage_lines(50)
@@ -696,7 +749,8 @@ def main() -> None:
         ["stem_fused", "conv_int8", "matmul_int8", "expand_add"],
         f"ResNet-50, {len(batches)} batches of {BATCH}",
         {"matmul_int8": "wgmma_tma",
-         "conv_int8": {"wgmma_tma": 36 * len(batches)}})
+         "conv_int8": {"wgmma_tma": 36 * len(batches)},
+         "expand_add": {"wgmma_tma": 16 * len(batches)}})
     if launches50["expand_add"] != 16 * len(batches):
         fail(f"expand_add launched {launches50['expand_add']} times, not "
              f"16 a batch")

@@ -11,12 +11,13 @@ flags and is redone when either changes.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and adds
 one to the kernel's launch count, and to the count of the variant it was
-given (K2's, K3's and K4's paths, chosen by shape: K4's ``wgmma_tma``,
-``wgmma_small`` for blocks of at most 16 x 16, ``mma_sync``).  The counts
+given (K2's, K3's, K4's and K7's paths, chosen by shape: K4's
+``wgmma_tma``, ``wgmma_small`` for blocks of at most 16 x 16,
+``mma_sync``; K7's ``wgmma_tma``, ``mma_sync``).  The counts
 let a run show that its main path really went through the kernels, and
 which path.
 
-K2, K3 and K4 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
+K2, K3, K4 and K7 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
 tensor maps are encoded on the host by ``cuTensorMapEncodeTiled`` (and
 ``cuTensorMapEncodeIm2col`` for K2): the library fetches them through
 ``cudaGetDriverEntryPoint`` at run time, so the link line needs no
@@ -87,7 +88,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("expand_add", "expand_add_launch",
                "resnet_accel_tpu_torch/csrc/expand_add.cu",
                "resnet_accel_tpu/ops/expand_fused.py:49",
-               [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P]),
+               [_P] * 6 + [_I] * 5 + [_F] * 4 + [_P]),
         Kernel("flash_attention", "flash_attention_launch",
                "resnet_accel_tpu_torch/csrc/flash_attention.cu",
                "resnet_accel_tpu/ops/flash_attention.py:43",

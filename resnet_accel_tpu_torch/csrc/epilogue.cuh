@@ -33,6 +33,18 @@ __device__ __forceinline__ int residual_join(int m, int r, float s_main,
   return static_cast<int>(fmaxf(q, 0.f));
 }
 
+// residual_join with a multiply by ``inv_out`` in place of the divide by
+// s_out: the same bits for every int8 pair wherever exact_inv_out_scale
+// (ops/epilogue.py) returned inv_out for the block's scales.
+__device__ __forceinline__ int residual_join_inv(int m, int r, float s_main,
+                                                 float s_res, float inv_out) {
+  float s = __fadd_rn(__fmul_rn(__int2float_rn(m), s_main),
+                      __fmul_rn(__int2float_rn(r), s_res));
+  float q = rintf(__fmul_rn(s, inv_out));
+  q = fminf(fmaxf(q, -128.f), 127.f);
+  return static_cast<int>(fmaxf(q, 0.f));
+}
+
 // Four int8 values, lowest address in the lowest byte (the __dp4a order).
 __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
   return static_cast<int>((static_cast<uint32_t>(a) & 0xffu) |

@@ -1,14 +1,17 @@
 // The Hopper main loop shared by K3 (csrc/matmul_int8.cu, dense), K4
-// (csrc/bsr_matmul.cu, block-sparse) and K2 (csrc/conv_int8.cu, the conv
-// as an implicit GEMM).  All compute
+// (csrc/bsr_matmul.cu, block-sparse), K2 (csrc/conv_int8.cu, the conv
+// as an implicit GEMM) and K7 (csrc/expand_add.cu, a 1x1 conv joined to
+// its residual).  All compute
 //   C[M, N] = A[M, K] @ W^T   for int8 A [M, K] and W [N, K], K-major
 //   acc = sum (int32, exact) + bias[n];  acc = relu(acc) if relu
 //   out = requant ? clip(rint(f32(acc) * factors[n]), -128, 127) : acc
-// and differ in the K tiles a CTA walks -- every tile of K for K3 and K2,
-// the stored blocks of one block row for K4 -- and in A: a matrix for K3
-// and K4; for K2 (kConv) the conv windows of x [N, H, W, C], which a
-// TMA map in im2col mode fetches a tap at a time (make_im2col_map), with
-// the residual join (epilogue.cuh) fused into the stores.
+// and differ in the K tiles a CTA walks -- every tile of K for K3, K2 and
+// K7, the stored blocks of one block row for K4 -- and in A: a matrix for
+// K3, K4 and K7; for K2 (kConv) the conv windows of x [N, H, W, C], which
+// a TMA map in im2col mode fetches a tap at a time (make_im2col_map), with
+// the residual join (epilogue.cuh) fused into the stores.  K7 (kExpand)
+// requantizes without ReLU and joins the residual p.res in an epilogue of
+// its own (join_tile), exact without a conversion instruction.
 //
 // A tile is 128 rows of M by BN columns of N (K4: one block row):
 // - TMA.  The host encodes a tensor map over A [M, K] and one over the
@@ -66,16 +69,30 @@ constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kMaxSplit = 8;               // portable cluster size
 constexpr int kMaxDevices = 16;            // devices whose residency is kept
 
-template <int BN>
+// K7's join, a template argument of gemm_s8_kernel: none (K2, K3, K4), by
+// the IEEE divide by s_out, or by the multiply by p.inv_out that
+// exact_inv_out_scale (ops/epilogue.py) proved equal to it on all 256 x 256
+// int8 pairs of the block's scales.  The host picks by whether it has the
+// proof.
+enum Expand { kNoExpand = 0, kExpandDiv = 1, kExpandInv = 2 };
+
+template <int BN, int kExpand = kNoExpand>
 struct Cfg {
-  static constexpr int kStages = BN <= 64 ? 4 : 3;
+  // K7 (kExpand, BN 128) keeps two residual tiles beside the ring: two
+  // stages, so that two CTAs still fit an SM
+  static constexpr int kStages = kExpand ? 2 : BN <= 64 ? 4 : 3;
   static constexpr int kA = kBM * kBK;      // bytes of an A stage
   static constexpr int kW = BN * kBK;       // bytes of a W stage
   static constexpr int kRing = kStages * (kA + kW);
   static constexpr int kLd = BN + 8;        // int32s a staged row
-  static_assert(kBM * kLd * 4 <= kRing, "the staged partial reuses the ring");
-  // the ring (aligned to 1024 bytes by hand), then 2 * kStages mbarriers
-  static constexpr int kSmem = 1024 + kRing + 16 * kStages;
+  static_assert(kExpand || kBM * kLd * 4 <= kRing,
+                "the staged partial reuses the ring");
+  static constexpr int kRes = kBM * BN;     // K7: bytes of a residual tile
+  static_assert(!kExpand || BN == 128, "K7's tile is one 128-byte box wide");
+  // the ring (aligned to 1024 bytes by hand), then 2 * kStages mbarriers;
+  // K7: two more, and from the next 1024-byte boundary two residual tiles
+  static constexpr int kSmem =
+      1024 + kRing + (kExpand ? 1024 + 2 * kRes : 16 * kStages);
   static constexpr int kMinBlocks = BN <= 128 ? 2 : 1;  // CTAs an SM
   // An int8 tile leaves by TMA store at BN 64 only: on the H100 it made
   // the stage-1 convs' K4 15 % faster, but wider tiles 10-20 % slower
@@ -104,8 +121,9 @@ struct Params {
   // K2 (kConv): A is the conv window of x [N, H, W, C] channels-last
   // (p.a), K runs (kh, kw, c), pads are the top and left ones
   int H, W, C, Ho, Wo, KS, stride, pad_h, pad_w;
-  const int8_t* res;       // K2: the residual [M, N] int8 to join, or null
+  const int8_t* res;       // K2, K7: the residual [M, N] int8 to join
   float s_main, s_res, s_out;
+  float inv_out;           // K7 (kExpandInv): the proven reciprocal of s_out
 };
 
 // Rank ``rank`` of ``split`` walks units [lo, lo + cnt) of n (K tiles or
@@ -682,20 +700,143 @@ __device__ __forceinline__ void store_fragment(const Params& p,
   }
 }
 
+// ---- K7's epilogue ----------------------------------------------------
+//
+// K7 rounds without a conversion instruction (F2I and FRND run at a
+// quarter of the FP32 rate or less on the H100): for |y| <= 2^22, y +
+// kRound lies in [2^23, 2^24), where floats are the integers, so the IEEE
+// round-to-nearest-even of that add is kRound + rint(y) -- ties to even
+// too, as kRound is even -- and its bits are 0x4B400000 + rint(y), the low
+// byte rint(y) in two's complement.  Every value rounded here is first
+// clamped into [-128, 127], and clamping to integer bounds commutes with
+// rint: clip(rint(y), lo, hi) == rint(clip(y, lo, hi)).
+constexpr float kRound = 12582912.f;  // 1.5 * 2^23, bits 0x4B400000
+constexpr int k127Bits = 0x42FE0000;  // the bits of 127.f
+
+// clip(rint(f32(x) * f), -128, 127) -- requant_i8 without ReLU -- as a
+// float (exact: an integer).
+__device__ __forceinline__ float requant_f32(int x, float f) {
+  const float y = __fmul_rn(__int2float_rn(x), f);
+  return __fadd_rn(__fadd_rn(fminf(fmaxf(y, -128.f), 127.f), kRound),
+                   -kRound);
+}
+
+// The join of requantized z with residual r (exact floats) --
+// epilogue.cuh's residual_join, ReLU included:
+// max(clip(rint((z*s_main + r*s_res) / s_out), -128, 127), 0), each float
+// step one IEEE f32 operation -- as the bits of kRound + out (low byte
+// out); kExpandInv multiplies by p.inv_out in place of the divide.  The
+// clamp to [0, 127] runs on the bits as integers: for t >= +0 they order
+// as the values do, and every t < 0 (-0 too) has a negative pattern.
+template <int kExpand>
+__device__ __forceinline__ uint32_t join_bits(const Params& p, float z,
+                                              float r) {
+  const float s = __fadd_rn(__fmul_rn(z, p.s_main), __fmul_rn(r, p.s_res));
+  const float t = kExpand == kExpandInv ? __fmul_rn(s, p.inv_out)
+                                        : __fdiv_rn(s, p.s_out);
+  const int q = min(max(__float_as_int(t), 0), k127Bits);
+  return __float_as_uint(__fadd_rn(__int_as_float(q), kRound));
+}
+
+// K7's accumulator starts at the bias: each lane's columns (8j + 2lq, +1)
+// of both its rows (acc = bias + sum in int32, the golden's wrap too).
+template <int BN>
+__device__ __forceinline__ void bias_acc(const Params& p, const Walk& wk,
+                                         int lq, int (&acc)[BN / 2]) {
+  const int2* bias = reinterpret_cast<const int2*>(p.bias + wk.n0) + lq;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int2 b = 8 * j < wk.ncols ? __ldg(bias + 4 * j) : make_int2(0, 0);
+    acc[4 * j] = acc[4 * j + 2] = b.x;
+    acc[4 * j + 1] = acc[4 * j + 3] = b.y;
+  }
+}
+
+// K7's epilogue, in the accumulator fragment's layout: each lane's pair of
+// columns (8j + 2lq, +1) of rows r0 and r0 + 8 -- requant without ReLU
+// (the bias is in acc already), then the join with the residual pair read
+// from ``tile`` (two bytes), written back over it.  ``tile`` holds the
+// residual as its map and the output's place it (one box of 128 bytes by
+// kBM rows, 128-byte swizzle): each row's 16-byte chunks XORed with the
+// row's low 3 bits, which rows r0 and r0 + 8 share.  The next pair's
+// factors load while this pair joins.  N % 16 == 0, so a tile's columns
+// end on a 16-column boundary (rows past M are the TMA's zeros, and are
+// not stored).
+template <int BN, int kExpand>
+__device__ __forceinline__ void join_tile(const Params& p,
+                                          const int (&acc)[BN / 2],
+                                          const Walk& wk, int r0, int lq,
+                                          uint8_t* tile) {
+  uint8_t* row = tile + r0 * 128 + 2 * lq;
+  const int sw = r0 & 7;
+  const float2* fac = reinterpret_cast<const float2*>(p.factors + wk.n0) + lq;
+  float2 f = __ldg(fac);  // columns 8j + 2lq, +1
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (8 * j >= wk.ncols) break;
+    const float2 fj = f;
+    if (j + 1 < BN / 8 && 8 * (j + 1) < wk.ncols) f = __ldg(fac + 4 * (j + 1));
+    uint8_t* at = row + (((j >> 1) ^ sw) << 4) + 8 * (j & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint16_t* pair = reinterpret_cast<uint16_t*>(at + 1024 * h);
+      const uint32_t rv = *pair;
+      const uint32_t q0 = join_bits<kExpand>(
+          p, requant_f32(acc[4 * j + 2 * h], fj.x),
+          __int2float_rn(static_cast<int8_t>(rv)));
+      const uint32_t q1 = join_bits<kExpand>(
+          p, requant_f32(acc[4 * j + 2 * h + 1], fj.y),
+          __int2float_rn(static_cast<int8_t>(rv >> 8)));
+      *pair = static_cast<uint16_t>(__byte_perm(q0, q1, 0x0040u));
+    }
+  }
+}
+
+// K7's shared memory beside the ring (Cfg<BN, kExpand>::kSmem): after the
+// ring's barriers at ``full``, the two residual tiles' barriers; from the
+// next 1024 bytes the two tiles, kRes bytes each.
+template <typename C>
+__device__ __forceinline__ uint32_t res_bar(uint32_t full, int b) {
+  return full + 16 * C::kStages + 8 * b;
+}
+
+template <typename C>
+__device__ __forceinline__ uint32_t res_tile(uint32_t full, int b) {
+  return full + 1024 + b * C::kRes;
+}
+
+// K7: tile t's residual (one box of 128 bytes by kBM rows) into tile
+// buffer b, its bytes reported to that buffer's barrier.
+template <int BN, typename C>
+__device__ __forceinline__ void load_res(const Params& p,
+                                         const CUtensorMap* map, int t,
+                                         uint32_t full, int b) {
+  const Walk wk = walk_of<BN, false>(p, t, 0);
+  mbar_expect_tx(res_bar<C>(full, b), C::kRes);
+  tma_load(res_tile<C>(full, b), map, wk.n0, wk.m0, res_bar<C>(full, b));
+}
+
 // Grid: with split 1, persistent: CTA b walks tiles b, b + gridDim.x, ...
 // (tile t: N tile -- K4's block row -- t % n_tiles, M tile t / n_tiles),
 // the producer running ahead into the next tile while the consumers store
 // this one.  With split > 1: one tile a cluster of ``split`` CTAs along x.
 // kConv (K2, kTma, split 1 only): A is the conv window of x, through
 // map_a's im2col mode; the epilogue joins the residual where p.res is
-// given.
-template <int BN, bool kBsr, bool kTma, bool kConv = false>
+// given.  kExpand (K7, BN 128, kTma, split 1 only): the accumulator starts
+// at the bias; each tile's residual arrives through map_res (one box of
+// 128 bytes by kBM rows) in one of two tile buffers beside the ring --
+// consumer thread 0 loads the next tile's as this tile's epilogue starts
+// -- is joined in place (join_tile) and leaves through map_out
+// (p.tma_out).
+template <int BN, bool kBsr, bool kTma, bool kConv = false,
+          int kExpand = kNoExpand>
 __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
     gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_w,
                    const __grid_constant__ CUtensorMap map_out,
-                   const Params p) {
-  using C = Cfg<BN>;
+                   const Params p,
+                   const __grid_constant__ CUtensorMap map_res) {
+  using C = Cfg<BN, kExpand>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms' grid
@@ -712,6 +853,10 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full + 8 * s, kTma ? 1 : 32);
       mbar_init(empty + 8 * s, kConsumers / 32);  // a consumer warp each
+    }
+    if constexpr (kExpand != kNoExpand) {
+      mbar_init(res_bar<C>(full, 0), 1);
+      mbar_init(res_bar<C>(full, 1), 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -787,11 +932,15 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
     const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4, lq = lane % 4;
     const int nk = p.bk / 32;
     int stage = 0, phase = 0;
+    if constexpr (kExpand != kNoExpand)  // K7: the first tile's residual
+      if (tid == 0 && tile0 < tiles)
+        load_res<BN, C>(p, &map_res, tile0, full, 0);
     for (int tile = tile0; tile < tiles; tile += tile_step) {
       const Walk wk = walk_of<BN, kBsr>(p, tile, rank);
       int acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      if constexpr (kExpand != kNoExpand) bias_acc<BN>(p, wk, lq, acc);
       int prev = 0;
       for (int s = 0; s < wk.nsteps; ++s) {
         mbar_wait(full + 8 * stage, phase);
@@ -822,6 +971,28 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
           C::kTmaOut && p.tma_out && p.split == 1 && wk.nsteps > 0;
       if (wk.nsteps > 0 && !via_tma && lane == 0)
         mbar_arrive(empty + 8 * prev);
+      if constexpr (kExpand != kNoExpand) {
+        // K7: the next tile's residual goes into the other buffer once the
+        // store that last read it has read it.
+        const int joined = (tile - tile0) / tile_step;  // tiles before
+        const int buf = joined & 1;
+        if (tid == 0) {
+          bulk_wait_read();
+          if (tile + tile_step < tiles)
+            load_res<BN, C>(p, &map_res, tile + tile_step, full, buf ^ 1);
+        }
+        mbar_wait(res_bar<C>(full, buf), (joined >> 1) & 1);
+        join_tile<BN, kExpand>(p, acc, wk, r0, lq,
+                               smem + (res_tile<C>(full, buf) - base));
+        // the generic-proxy stores, visible to the TMA's async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+        if (tid == 0) {
+          tma_store(&map_out, wk.n0, wk.m0, res_tile<C>(full, buf));
+          bulk_commit();
+        }
+        continue;
+      }
       if (via_tma) {
         if constexpr (C::kTmaOut) {
           // both warpgroups' wgmmas have read the stage's W
@@ -1046,11 +1217,14 @@ int store_width(int64_t pitch, int64_t step, const void* out) {
 // most one a tile), each walking tiles; else a cluster of ``split`` CTAs a
 // tile.  A cluster of one is launched without the cluster attribute: on
 // the H100 that launch is 1-2 us faster.
-template <int BN, bool kBsr, bool kTma, bool kConv = false>
+template <int BN, bool kBsr, bool kTma, bool kConv = false,
+          int kExpand = kNoExpand>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_w,
                    const CUtensorMap& map_out, const Params& p,
-                   cudaStream_t stream) {
-  auto* kernel = gemm_s8_kernel<BN, kBsr, kTma, kConv>;
+                   cudaStream_t stream,
+                   const CUtensorMap& map_res = CUtensorMap{}) {
+  using C = Cfg<BN, kExpand>;
+  auto* kernel = gemm_s8_kernel<BN, kBsr, kTma, kConv, kExpand>;
   // resident CTAs on the device, found once per device and instantiation
   static int resident[kMaxDevices] = {};
   int dev = 0;
@@ -1060,12 +1234,12 @@ cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_w,
   if (resident[dev] == 0) {
     int sms = 0, per_sm = 0;
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kThreads, Cfg<BN>::kSmem);
+          &per_sm, kernel, kThreads, C::kSmem);
     if (err != cudaSuccess) return err;
     if (per_sm == 0) return cudaErrorInvalidConfiguration;
     resident[dev] = per_sm * sms;
@@ -1077,7 +1251,7 @@ cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_w,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(ctas), 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = Cfg<BN>::kSmem;
+  cfg.dynamicSmemBytes = C::kSmem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1086,7 +1260,7 @@ cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_w,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.split > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, map_out, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, map_out, p, map_res);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

@@ -1,5 +1,7 @@
-"""K1's, K2's, K3's, K4's, K5's and K10's times at the served shapes, for
-an A/B of two checkouts of this package in one call on the card.
+"""Kernel A/B timings on the card: K1-K5, K7 and K10 at served shapes.
+
+Their times, for an A/B of two checkouts of this package in one call on
+the card.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo P --repo C --repo C \\
         --repo P [--iters 20] [--cases K1,K2]
@@ -33,9 +35,15 @@ regrouped), the 2048 GEMM (0.7), the 18 convs at batch 8 and the 19 (the
 convs (ReLU on c1, the residual join on c2), summed by stage and in all,
 and over ResNet-50's 36 (its c1, c2 and downsample convs; the c3 run K7);
 K5 at the LM's prefill (T 640, dh 64, causal) at BH 8 and 64, one launch;
+K7 at the 16 c3 of the seed-0 ResNet-50 at batch 128 (the checkout's
+model: its c3 weights, biases, factors and scales, joined by the proven
+reciprocal where the checkout's model finds one; seeded int8 inputs and
+residuals), summed by stage and in all, with ``torch._int_mm``'s time on
+the same products;
 R18: the checkout's whole ResNet-18 forward at batch 128 through
 ``InferenceEngine.benchmark`` (seed-0 weights, median of ``--iters``),
-dense and pruned 0.7 in 128 x 128 blocks (K4's Hopper path).
+dense and pruned 0.7 in 128 x 128 blocks (K4's Hopper path); R50: its
+dense ResNet-50 forward the same way.
 The trunk's conv shapes come from this script's own checkout
 (``models/resnet.py::trunk_convs``), so every checkout times the same
 convs.
@@ -57,6 +65,18 @@ times K2 instead at each trunk conv of ResNet-18 and ResNet-50 (batch
 ``--k5-chunks 1,2,4`` times K5 at the prefill (BH 8 and 64) with each
 chunk size (key tiles a CTA) forced in place of ``flash_plan``'s.
 
+    python resnet_accel_tpu_torch/kernel_ab.py --repo P --repo C --sass
+
+compiles the sources K2, K3, K4 and K7 share the main loop in
+(``conv_int8.cu``, ``matmul_int8.cu``, ``bsr_matmul.cu``,
+``expand_add.cu``) to cubins in each checkout (``nvcc -cubin``, the
+package's flags, ``-Xptxas -v``), disassembles them (``cuobjdump
+-sass``) and prints, for each kernel of the first checkout, whether the
+second holds the same instructions (addresses and the kernels' names left
+out of the comparison: a template argument added with a default renames
+a kernel but changes none of its code), with instruction counts and the
+registers and spills ptxas reports.
+
     python resnet_accel_tpu_torch/kernel_ab.py --repo C --ablate
 
 times K1 and K10 at their batch-128 cases, K2 at ResNet-18's 19 convs, K4's
@@ -65,7 +85,11 @@ checkout and on copies of its package with one part knocked out
 (``ABLATIONS``; the copies are built under the checkout's
 ``resnet_accel_tpu_torch/_build/``): what the part costs, not a result.
 With ``--cases K1`` only K1, K10 and K1's ablations run (``--cases
-K1,K10``: K10's too; ``--cases K4``: K4's).  The stem's ablations edit the
+K1,K10``: K10's too; ``--cases K4``: K4's; ``--cases K7``: K7 at the 16
+c3 with the join divided, the join knocked out, the residual read from
+L2 (one place for every tile) instead of device memory, each residual
+loaded as its tile's epilogue starts instead of one epilogue ahead, and
+no epilogue arithmetic).  The stem's ablations edit the
 tile K1 and K10 share (``csrc/stem_mma_tile.cuh``), so each reaches both
 but ``k1_no_loads`` (fp32 loads), ``k10_no_loads`` (int8 loads) and
 ``k10_no_requant`` (unpooled K10's requant).
@@ -159,6 +183,51 @@ ABLATIONS = {
          "        if (c.y >= 0)\n"
          "          tma_load(a + kSmallBoxA, &map_a, x1 - x1 % 16, m0, bar);",
          ""),
+    ],
+    # K7 divides by s_out where it has the proven reciprocal
+    "k7_divide": [
+        ("sm90_gemm_s8.cuh",
+         "const float t = kExpand == kExpandInv ? __fmul_rn(s, p.inv_out)\n"
+         "                                        : __fdiv_rn(s, p.s_out);",
+         "const float t = __fdiv_rn(s, p.s_out);"),
+    ],
+    # K7's join becomes an XOR of its operands: the requant, the residual
+    # and the stores stay, the join's arithmetic goes
+    "k7_no_join": [
+        ("sm90_gemm_s8.cuh",
+         "  const float s = __fadd_rn(__fmul_rn(z, p.s_main), "
+         "__fmul_rn(r, p.s_res));",
+         "  return __float_as_uint(z) ^ __float_as_uint(r);\n"
+         "  const float s = 0.f;"),
+    ],
+    # K7 loads every tile's residual from one place, which stays in L2:
+    # the residual's device-memory reads go, its boxes and barriers stay
+    "k7_residual_l2": [
+        ("sm90_gemm_s8.cuh",
+         "tma_load(res_tile<C>(full, b), map, wk.n0, wk.m0,",
+         "tma_load(res_tile<C>(full, b), map, 0, 0,"),
+    ],
+    # K7 loads each tile's residual as its own epilogue starts, not one
+    # epilogue ahead
+    "k7_residual_late": [
+        ("sm90_gemm_s8.cuh",
+         "          if (tile + tile_step < tiles)\n"
+         "            load_res<BN, C>(p, &map_res, tile + tile_step, full, "
+         "buf ^ 1);",
+         "          load_res<BN, C>(p, &map_res, tile, full, buf);"),
+        ("sm90_gemm_s8.cuh",
+         "      if (tid == 0 && tile0 < tiles)\n"
+         "        load_res<BN, C>(p, &map_res, tile0, full, 0);",
+         "      ;"),
+    ],
+    # K7 without its epilogue's arithmetic: the main loop, the residual's
+    # loads into the buffer and its store back, as they are
+    "k7_no_epilogue": [
+        ("sm90_gemm_s8.cuh",
+         "        join_tile<BN, kExpand>(p, acc, wk, r0, lq,\n"
+         "                               smem + (res_tile<C>(full, buf) - "
+         "base));",
+         "        ;"),
     ],
     # K5 with one TF32 pass (hi.hi) in place of three
     "k5_one_pass": [
@@ -310,6 +379,22 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
             emit(f"K2 resnet{depth} stage {stage} batch 128", ms)
         emit(f"K2 resnet{depth} {n} convs batch 128", total)
 
+    # ---- K7 ----
+    if want("K7"):
+        stages, lib_stages = {}, {}
+        for stage, fn, lib in _k7_calls(torch, ops, dev):
+            stages[stage] = stages.get(stage, 0.0) + _time_ms(torch, fn,
+                                                              iters)
+            lib_stages[stage] = lib_stages.get(stage, 0.0) + _time_ms(
+                torch, lib, iters)
+        for stage in sorted(stages):
+            emit(f"K7 resnet50 stage {stage} batch 128", stages[stage])
+            library[f"K7 resnet50 stage {stage} batch 128"] = \
+                lib_stages[stage]
+        emit("K7 resnet50 16 c3 batch 128", sum(stages.values()),
+             plan_of("expand_plan", *_k7_plan_args(torch, dev)))
+        library["K7 resnet50 16 c3 batch 128"] = sum(lib_stages.values())
+
     # ---- K5 ----
     sdpa = torch.nn.functional.scaled_dot_product_attention
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -322,6 +407,8 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
     # ---- whole forwards ----
     if want("R18"):
         _r18_forwards(repo, iters, emit)
+    if want("R50"):
+        _r50_forward(iters, emit)
     print(json.dumps({"repo": repo, "library_ms": library}), flush=True)
 
 
@@ -345,6 +432,75 @@ def _r18_forwards(repo, iters, emit):
                         ("sparse 128x128", sparse)):
         bench = InferenceEngine(model, device="cuda").benchmark(x, iters)
         emit(f"R18 {name} forward batch 128", bench.latency_s * 1e3)
+
+
+def _r50_forward(iters, emit):
+    """The checkout's dense ResNet-50 forward at batch 128, seed 0."""
+    import numpy as np
+
+    from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
+    x = np.random.default_rng(0).normal(0, 1, (128, 3, 224, 224)).astype(
+        np.float32)
+    bench = InferenceEngine(_resnet50(), device="cuda").benchmark(x, iters)
+    emit("R50 dense forward batch 128", bench.latency_s * 1e3)
+
+
+def _resnet50():
+    """The checkout's seed-0 ResNet-50 (1000 classes), calibrated on two
+    seeded 224 x 224 images on the CPU, as ``chip_smoke.py`` makes it."""
+    import numpy as np
+
+    from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
+                                                      quantize_resnet)
+    calib = np.random.default_rng(0).normal(0, 1, (2, 3, 224, 224)).astype(
+        np.float32)
+    return quantize_resnet(init_resnet_fp32(50, seed=0, num_classes=1000),
+                           calib, 50, 1000)
+
+
+def _k7_calls(torch, ops, dev):
+    """(stage, one K7 call, one ``torch._int_mm`` on its product) at each
+    of the 16 c3 of the checkout's seed-0 ResNet-50 at batch 128: its c3
+    weight, bias, factors and scales, and the proven reciprocal where the
+    checkout's module finds one; seeded int8 inputs and residuals."""
+    from resnet_accel_tpu_torch.models.resnet import trunk_convs
+    from resnet_accel_tpu_torch.models.resnet18 import ResNet18Int8Module
+    mod = ResNet18Int8Module(_resnet50(), dev)
+    invs = getattr(mod, "inv_out", [None] * len(mod.blocks))  # older
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = []
+    for c in trunk_convs(50):
+        if not c.name.endswith(".c3"):
+            continue
+        i = int(c.name[1:].split(".")[0])
+        c3 = mod.blocks[i]["c3"]
+        w = c3.weight.reshape(c3.weight.shape[0], -1)
+
+        def i8(shape):
+            return torch.randint(-128, 128, shape, dtype=torch.int8,
+                                 device=dev, generator=gen).contiguous(
+                                     memory_format=cl)
+        x, r = i8((128, c.C, c.H, c.H)), i8((128, c.O, c.H, c.H))
+        kw = {} if invs[i] is None else {"inv_out": invs[i]}
+        a2d, wt = x.permute(0, 2, 3, 1).reshape(-1, c.C), w.t()
+        calls.append((c.stage, lambda x=x, w=w, c3=c3, r=r, rs=mod.res_scales[
+            i], kw=kw: ops.expand_add_int8(x, w, c3.bias, c3.factors, r, *rs,
+                                           **kw),
+                      lambda a2d=a2d, wt=wt: torch._int_mm(a2d, wt)))
+    return calls
+
+
+def _k7_plan_args(torch, dev):
+    """``expand_plan``'s arguments at ResNet-50's stage-1 c3, batch 128."""
+    cl = torch.channels_last
+    return (torch.empty((128, 64, 56, 56), dtype=torch.int8, device=dev,
+                        memory_format=cl),
+            torch.empty((256, 64), dtype=torch.int8, device=dev),
+            torch.empty((256,), dtype=torch.int32, device=dev),
+            torch.empty((256,), device=dev),
+            torch.empty((128, 256, 56, 56), dtype=torch.int8, device=dev,
+                        memory_format=cl))
 
 
 K1_CASE = "K1 stem batch 128 224x224"
@@ -438,6 +594,84 @@ def _k2_tile_sweep(repo: str, iters: int, tiles, trunks) -> None:
             print(json.dumps(row), flush=True)
 
 
+#: The sources whose kernels run sm90_gemm_s8.cuh's main loop.
+SASS_SOURCES = ("conv_int8.cu", "matmul_int8.cu", "bsr_matmul.cu",
+                "expand_add.cu")
+
+
+def _sass(repo: str, flags) -> dict:
+    """{kernel: (instructions, ptxas's registers and spills)} of the
+    sources in SASS_SOURCES under ``repo``, compiled to cubins under its
+    build directory.  Kernel names lose their anonymous namespace's tag
+    (a hash of the file) and K7's join argument where it is 0 (the
+    default every kernel but K7's takes); instructions lose their
+    addresses and encodings."""
+    import re
+    csrc = os.path.join(os.path.abspath(repo), "resnet_accel_tpu_torch",
+                        "csrc")
+    out_dir = os.path.join(os.path.dirname(csrc), "_build", "sass")
+    os.makedirs(out_dir, exist_ok=True)
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    kernels = {}
+
+    def norm(name):
+        name = re.sub(r"\d+_GLOBAL__N__\w+?_[0-9a-f]{8}", "ANON", name)
+        # K7's residual map, a parameter after Params, renames the rest
+        return re.sub(r"ParamsES2_$", "ParamsE",
+                      name.replace("ELi0EEEv", "EEEv"))
+    for src in SASS_SOURCES:
+        cubin = os.path.join(out_dir, src + ".cubin")
+        proc = subprocess.run(
+            [os.path.join(cuda, "bin", "nvcc"), *flags, "-Xptxas=-v",
+             "-cubin", "-o", cubin, os.path.join(csrc, src)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_ab: nvcc -cubin {src}: {proc.stderr}")
+        ptxas, fn = {}, None
+        for line in proc.stderr.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = norm(m.group(1))
+            elif fn and ("spill" in line or "Used" in line):
+                ptxas.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+        dump = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"),
+                               "-sass", cubin], capture_output=True,
+                              text=True, check=True).stdout
+        fn = None
+        for line in dump.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = norm(m.group(1))
+                kernels[fn] = ([], ptxas.get(fn, []))
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+            if fn and m:
+                kernels[fn][0].append(m.group(1).strip())
+    return kernels
+
+
+def _sass_compare(repos) -> None:
+    """Each kernel of the first checkout against the second: the same
+    instructions or not (:func:`_sass`)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from resnet_accel_tpu_torch._kernels import NVCC_FLAGS
+    a, b = (_sass(r, NVCC_FLAGS) for r in repos[:2])
+    for name in sorted(set(a) | set(b)):
+        row = {"kernel": name, "same": name in a and name in b
+               and a[name][0] == b[name][0]}
+        if name in a and name in b and not row["same"]:
+            row["first_differences"] = [
+                (i, x, y) for i, (x, y) in enumerate(zip(a[name][0],
+                                                         b[name][0]))
+                if x != y][:8]
+        for repo, k in zip(repos, (a, b)):
+            if name in k:
+                row[repo] = {"instructions": len(k[name][0]),
+                             "ptxas": k[name][1]}
+        print(json.dumps(row), flush=True)
+
+
 def _k5_inputs(torch, dev, BH):
     return tuple(torch.randn((BH, 640, 64), device=dev) for _ in range(3))
 
@@ -529,8 +763,8 @@ def _ablated(repo: str, name: str) -> str:
 def _ablation_run(repo: str, iters: int, trunks, name: str,
                   cases=()) -> None:
     """K1 and K10 at batch 128, K2 at ResNet-18's 19 convs, K4's 14 x 14
-    cases and K5 at the prefill, on ``repo``; ``cases`` as :func:`_run`
-    takes them."""
+    cases, K7 at ResNet-50's 16 c3 and K5 at the prefill, on ``repo``;
+    ``cases`` as :func:`_run` takes them."""
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
@@ -564,6 +798,17 @@ def _ablation_run(repo: str, iters: int, trunks, name: str,
         print(json.dumps({"ablation": name, "case": case, "ms": ms}),
               flush=True)
         del calls
+    if want("K7"):
+        stages = {}
+        for stage, fn, _ in _k7_calls(torch, ops, dev):
+            stages[stage] = stages.get(stage, 0.0) + _time_ms(torch, fn,
+                                                              iters)
+        for stage, ms in sorted(stages.items()):
+            print(json.dumps({"ablation": name, "case": f"K7 resnet50 stage "
+                              f"{stage} batch 128", "ms": ms}), flush=True)
+        print(json.dumps({"ablation": name, "case": "K7 resnet50 16 c3 "
+                          "batch 128", "ms": sum(stages.values())}),
+              flush=True)
     for BH in (8, 64) if want("K5") else ():
         q, k, v = _k5_inputs(torch, dev, BH)
         err = (ops.flash_attention(q, k, v, causal=True)
@@ -672,8 +917,11 @@ def main(argv=None) -> int:
                          "each N tile instead of the A/B cases")
     ap.add_argument("--k5-chunks", default="",
                     help="e.g. 1,2,4: time K5 with each chunk size instead")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the SASS of the first two checkouts' "
+                         "main-loop kernels instead")
     ap.add_argument("--ablate", action="store_true",
-                    help="time K2 and K5 with parts knocked out instead")
+                    help="time the kernels with parts knocked out instead")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--trunks", default="{}", help=argparse.SUPPRESS)
     ap.add_argument("--ablation", default="", help=argparse.SUPPRESS)
@@ -696,6 +944,9 @@ def main(argv=None) -> int:
                          [int(s) for s in args.splits.split(",")])
         else:
             _run(args.repo[0], args.iters, trunks, cases)
+        return 0
+    if args.sass:
+        _sass_compare(args.repo)
         return 0
     # the trunk convs of this script's checkout, for every repo's run
     sys.path.insert(0, os.path.dirname(os.path.dirname(

@@ -28,7 +28,10 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
         basic:      conv2d_int8 (K2) for c1, for the downsample and for
                     c2 with the residual join fused in
         bottleneck: conv2d_int8 (K2) for c1, c2 and the downsample, then
-                    expand_add_int8 (K7) for c3 with the residual join
+                    expand_add_int8 (K7) for c3 with the residual join,
+                    by the multiply by the block's proven reciprocal
+                    (exact_inv_out_scale, found once at load) where the
+                    proof holds, as the JAX make_forward joins
       -> avgpool_global_int8 -> matmul_int8 (K3) -> x fc_deq
 
   A trunk layer with BSR weights runs im2col_nchw -> bsr_matmul_wt (K4,
@@ -65,6 +68,7 @@ from resnet_accel_tpu_torch.ops import (
     bsr_matmul_wt_plain,
     conv2d_int8,
     conv2d_int8_plain,
+    exact_inv_out_scale,
     expand_add_int8,
     expand_add_int8_plain,
     im2col_nchw,
@@ -671,12 +675,12 @@ class Int8Conv(nn.Module):
             np.asarray(qc.factors, np.float32)).to(device))
 
     def forward(self, x, conv=conv2d_int8, bsr=bsr_matmul_wt, residual=None,
-                res_scales=None, expand=None):
+                res_scales=None, expand=None, inv_out=None):
         if self.packed is None:
             if expand is not None:
                 w = self.weight.reshape(self.weight.shape[0], -1)  # [O, C]
                 return expand(x, w, self.bias, self.factors, residual,
-                              *res_scales)
+                              *res_scales, inv_out=inv_out)
             return conv(x, self.weight, self.bias, self.factors,
                         stride=self.stride, padding=self.padding,
                         relu=self.relu, residual=residual,
@@ -741,6 +745,9 @@ class ResNet18Int8Module(nn.Module):
                 4 * stem.in_channels, 4, device)
         self.blocks = nn.ModuleList()
         self.res_scales: List[Tuple[float, float, float]] = []
+        # each bottleneck's proven reciprocal of s_out for K7's join, or
+        # None (JAX make_forward's inv_of); None for a basic block
+        self.inv_out: List[Optional[float]] = []
         for i, blk in enumerate(model.blocks):
             convs = nn.ModuleDict()
             for prefix, qc in blk.named_convs(i):
@@ -749,6 +756,9 @@ class ResNet18Int8Module(nn.Module):
                         qc.w2d, qc.in_channels, qc.kernel, device), device)
             self.blocks.append(convs)
             self.res_scales.append((blk.s_main, blk.s_res, blk.s_out))
+            self.inv_out.append(
+                exact_inv_out_scale(blk.s_main, blk.s_res, blk.s_out)
+                if isinstance(blk, QBottleneck) else None)
         # [K, classes] as the .t() view of the row-major [classes, K]: the
         # K-major weight K3 takes without a copy
         self.register_buffer("fc_w", torch.from_numpy(
@@ -792,13 +802,14 @@ class ResNet18Int8Module(nn.Module):
             a = stem_int8(x, self.stem_k1_w, st.bias, st.factors)
         else:
             a = stem(x, self.stem_k1_w, st.bias, st.factors, self.s_input)
-        for convs, rs in zip(self.blocks, self.res_scales):
+        for convs, rs, inv in zip(self.blocks, self.res_scales,
+                                  self.inv_out):
             y = convs["c1"](a, conv, bsr)
             r = convs["ds"](a, conv, bsr) if "ds" in convs else a
             if "c3" in convs:  # a bottleneck: c2, then c3 with the join
                 y = convs["c2"](y, conv, bsr)
                 a = convs["c3"](y, conv, bsr, residual=r, res_scales=rs,
-                                expand=expand)
+                                expand=expand, inv_out=inv)
             else:
                 a = convs["c2"](y, conv, bsr, residual=r, res_scales=rs)
         a = avgpool_global_int8(a)

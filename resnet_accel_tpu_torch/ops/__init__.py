@@ -32,6 +32,7 @@ from resnet_accel_tpu_torch.ops.epilogue import (
 from resnet_accel_tpu_torch.ops.expand_fused import (
     expand_add_int8,
     expand_add_int8_plain,
+    expand_plan,
 )
 from resnet_accel_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -83,6 +84,7 @@ __all__ = [
     "exact_pow2_inv",
     "expand_add_int8",
     "expand_add_int8_plain",
+    "expand_plan",
     "flash_attention",
     "flash_attention_plain",
     "fused_stem_pool",

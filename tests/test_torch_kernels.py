@@ -561,13 +561,17 @@ def test_bsr_matmul_small_cluster_split(cuda, monkeypatch, split):
                        dense)
 
 
-# The four c3 shapes of ResNet-50 at batch 2, a single pixel (M = 1), and
-# C_in, C_out not multiples of 16 (the 4-byte copy path) with a ragged M.
-@pytest.mark.parametrize("N,C,O,H", [
-    (2, 64, 256, 56), (2, 128, 512, 28), (2, 256, 1024, 14),
-    (2, 512, 2048, 7), (1, 64, 256, 1), (3, 12, 20, 5)])
-def test_expand_add(cuda, N, C, O, H):
-    rng = np.random.default_rng(C + O + H)
+# The four c3 shapes of ResNet-50 at batch 2 and at the served batch of
+# 128, a single pixel (M = 1), and C_in, C_out not multiples of 16 (the
+# mma_sync route, 4-byte copies) with a ragged M; each at scales with an
+# exact_inv_out_scale proof, joined by the reciprocal and by the divide,
+# and at a triple with none (1.6447..., 0.6804..., 1.3818...), by the
+# divide only.
+NO_PROOF = (1.644742727279663, 0.680426299571991, 1.3817954063415527)
+
+
+def _expand_case(cuda, N, C, O, H, seed):
+    rng = np.random.default_rng(seed)
     cl = torch.channels_last
     x = _t(_i8(rng, (N, C, H, H)), cuda).contiguous(memory_format=cl)
     w = ops.pack_weight(_i8(rng, (O, C)), C, 1, cuda)   # [O, C, 1, 1]
@@ -576,20 +580,72 @@ def test_expand_add(cuda, N, C, O, H):
     f = _t((rng.uniform(0.5, 1.5, O) * 0.011 / np.sqrt(C)).astype(
         np.float32), cuda)
     r = _t(_i8(rng, (N, O, H, H)), cuda).contiguous(memory_format=cl)
-    scales = (0.0213, 0.0172, 0.0311)
-    args = (x, w.reshape(O, C), bias, f, r, *scales)
+    return x, w, bias, f, r
+
+
+def _expand_once(args, inv, variant):
+    """One K7 launch on ``variant``: its output, equal to the plain
+    version's with the same ``inv_out``."""
     before = _kernels.launch_counts()["expand_add"]
-    got = ops.expand_add_int8(*args)
+    variants = dict(_kernels.KERNELS["expand_add"].variants)
+    got = ops.expand_add_int8(*args, inv_out=inv)
     torch.cuda.synchronize()
     assert _kernels.launch_counts()["expand_add"] == before + 1
-    assert got.is_contiguous(memory_format=cl)
-    want = ops.expand_add_int8_plain(*args)
-    assert torch.equal(got, want)
+    _variant_launched("expand_add", variants, variant)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ops.expand_add_int8_plain(*args, inv_out=inv))
+    return got
+
+
+@pytest.mark.parametrize("N,C,O,H,scales", [
+    (2, 64, 256, 56, (0.0213, 0.0172, 0.0311)),
+    (2, 128, 512, 28, (0.0213, 0.0172, 0.0311)),
+    (2, 256, 1024, 14, (0.0213, 0.0172, 0.0311)),
+    (2, 512, 2048, 7, (0.0213, 0.0172, 0.0311)),
+    (1, 64, 256, 1, (0.0213, 0.0172, 0.0311)),
+    (3, 12, 20, 5, (0.0213, 0.0172, 0.0311)),
+    (128, 64, 256, 56, (0.0213, 0.0172, 0.0311)),
+    (128, 128, 512, 28, (0.05, 0.061, 0.043)),
+    (128, 256, 1024, 14, (0.05, 0.06, 0.07)),
+    (128, 512, 2048, 7, (0.0213, 0.0172, 0.0311)),
+    (2, 64, 256, 56, NO_PROOF), (3, 12, 20, 5, NO_PROOF),
+    (128, 256, 1024, 14, NO_PROOF)])
+def test_expand_add(cuda, N, C, O, H, scales):
+    x, w, bias, f, r = _expand_case(cuda, N, C, O, H, C + O + H)
+    args = (x, w.reshape(O, C), bias, f, r, *scales)
+    plan = ops.expand_plan(x, w.reshape(O, C), bias, f, r)
+    assert plan.variant == ("wgmma_tma" if C % 16 == 0 else "mma_sync")
+    inv = ops.exact_inv_out_scale(*scales)
+    assert (inv is None) == (scales == NO_PROOF)
+    got = _expand_once(args, None, plan.variant)
+    if inv is not None:
+        assert torch.equal(_expand_once(args, inv, plan.variant), got)
     # K2 at kernel 1 with its fused join computes the same function
     assert torch.equal(got, ops.conv2d_int8(x, w, bias, f, residual=r,
                                             res_scales=scales))
     if N * H * H > 1:
-        assert int(want.max()) - int(want.min()) > 100
+        assert int(got.max()) - int(got.min()) > 100
+
+
+@pytest.mark.parametrize("inv", [False, True])
+def test_expand_add_residual_off_16_bytes(cuda, inv):
+    """ResNet-50's stage-1 c3 at batch 2 with the residual 4 bytes off a
+    16-byte boundary: TMA does not take it, so K7 runs mma_sync, and gives
+    the bits of the plain version and of wgmma_tma on an aligned copy."""
+    N, C, O, H = 2, 64, 256, 56
+    scales = (0.0213, 0.0172, 0.0311)
+    x, w, bias, f, r = _expand_case(cuda, N, C, O, H, 7)
+    cl = torch.channels_last
+    flat = torch.empty(r.numel() + 4, dtype=torch.int8, device=cuda)
+    off = flat[4:].view(N, H, H, O).permute(0, 3, 1, 2)
+    off.copy_(r)
+    assert off.is_contiguous(memory_format=cl) and off.data_ptr() % 16 == 4
+    s_inv = ops.exact_inv_out_scale(*scales) if inv else None
+    w2 = w.reshape(O, C)
+    assert ops.expand_plan(x, w2, bias, f, off).variant == "mma_sync"
+    got = _expand_once((x, w2, bias, f, off, *scales), s_inv, "mma_sync")
+    want = _expand_once((x, w2, bias, f, r, *scales), s_inv, "wgmma_tma")
+    assert torch.equal(got, want)
 
 
 def test_expand_add_saturated(cuda):

@@ -172,6 +172,18 @@ class TestForward:
         np.testing.assert_array_equal(jax_out[:4], golden)
         np.testing.assert_array_equal(got, jax_out)
 
+    def test_inv_out_equals_jax_proof(self, narrow):
+        """Each bottleneck's reciprocal for K7's join is the JAX
+        ``exact_inv_out_scale`` of its scales, as JAX ``make_forward``
+        finds it once per block (its ``inv_of``)."""
+        from resnet_accel_tpu.ops.epilogue import exact_inv_out_scale
+        ref = narrow["ref"]
+        mod = P.ResNet18Int8Module(narrow["port"], "cpu")
+        want = [exact_inv_out_scale(b.s_main, b.s_res, b.s_out)
+                for b in ref.blocks]
+        assert mod.inv_out == want
+        assert any(v is not None for v in want)
+
     def test_plain_forward_matches_forward(self, narrow):
         mod = P.ResNet18Int8Module(narrow["port"], "cpu")
         assert all("c3" in convs for convs in mod.blocks)
