@@ -94,10 +94,12 @@ result line) without them.  Phases, each fatal on failure:
 15. The conv sweep's four cases (ResNet-18's strided convs at ImageNet
    widths, batch 64, tap blocks zeroed at 0.7, seed 1): K8 against its
    plain version and against the dense K2 on the same weights, bit for
-   bit, with K8's, the plain and K2's times, K8's bound and
-   ``speedup_vs_dense``.  Then ``bench --conv --device cuda`` in this
-   process, counts reset just before (K8 and K2 must launch), and as a
-   subprocess; each must print four JSON lines.
+   bit, with K8's route, K8's, the plain and K2's times, K8's bound and
+   ``speedup_vs_dense`` for each case; K8 must run its Hopper route
+   (``wgmma_tma``) at all four.  Then ``bench --conv --device cuda`` in
+   this process, counts reset just before (K8 and K2 must launch, both
+   on ``wgmma_tma`` only), and as a subprocess; each must print four
+   JSON lines.
 16. K10 at ResNet-18's stem, batch 128, 224 x 224, on ``quantize_input``
    of the seed-0 images and the packed weight the model serves: pooled
    and unpooled against the plain version (both timed), and pooled
@@ -143,7 +145,8 @@ result line) without them.  Phases, each fatal on failure:
    forward of the pruned model; both forwards' img/s in the order dense,
    sparse, sparse, dense.
 22. K8 at block_c 16, block_o 14 on the sweep's l3.c1 and l4.ds, against
-   its plain version and the dense K2, bit for bit.
+   its plain version and the dense K2, bit for bit, on its ``mma_sync``
+   route (the only one those blocks take).
 23. The probes (``resnet_accel_tpu_torch/probes.py``): ``mma_s8_rate`` at
    K1's and K2's GEMM shapes, ``chain_rate`` (int32 max, f32 requant) and
    the stem's tensor-core tile, pooled on fp32 input, with stages knocked
@@ -222,7 +225,7 @@ def bsr_work(a, pk, out):
 
 
 def plan_text(plan) -> str:
-    """A K3 or K4 call's path, as printed beside its time."""
+    """A K3, K4, K7 or K8 call's path, as printed beside its time."""
     return (f"[{plan.variant}"
             + (f" N tile {plan.bn}" if plan.bn else "")
             + f" split {plan.split}]")
@@ -413,6 +416,7 @@ def main() -> None:
         maxpool2d_int8, pack_bsr, pack_stem_weight, pack_weight,
         quantize_input, quantize_s2d,
         quantize_s2d_nchw, sparse_conv2d_int8, sparse_conv2d_int8_plain,
+        sparse_conv_plan,
         stem_conv_pool, stem_conv_pool_int8, stem_conv_pool_int8_plain,
         stem_conv_pool_plain, stem_s2d_weights)
     from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
@@ -1181,6 +1185,7 @@ def main() -> None:
     sweep_rng = np.random.default_rng(1)      # bench --conv's data
     speedups, k8_case_ms = {}, {}
     k2_before = dict(_kernels.KERNELS["conv_int8"].variants)
+    k8_before = dict(_kernels.KERNELS["sparse_conv"].variants)
     with torch.inference_mode():
         for name, C, O, H, k, s, p in cli.CONV_CASES:
             xs = torch.from_numpy(sweep_rng.integers(
@@ -1195,14 +1200,13 @@ def main() -> None:
 
             def work(out, xs=xs, pk=pk, s=s):
                 return sconv_work(xs, pk, s, out)
-            ms0 = stats["sparse_conv"]["ms"]
             got = check("sparse_conv", name.split()[0],
                         lambda: sparse_conv2d_int8(xs, pk, **kw),
                         lambda: sparse_conv2d_int8_plain(xs, pk, **kw),
                         f"x{list(xs.shape)} k{k} s{s} O{O} "
-                        f"{pk.nnz_source}/{pk.total_source} blocks", work)
-            k8_ms = stats["sparse_conv"]["ms"] - ms0
-            k8_case_ms[name] = k8_ms
+                        f"{pk.nnz_source}/{pk.total_source} blocks", work,
+                        plan=sparse_conv_plan(xs, pk))
+            k8_ms = k8_case_ms[name] = last_check["ms"]
 
             def dense():
                 return conv2d_int8(xs, wd, zero, fct, stride=s, padding=p,
@@ -1211,13 +1215,17 @@ def main() -> None:
                 fail(f"K8 and the dense K2 disagree at {name}")
             d_ms = time_ms(dense, 10)
             speedups[name] = d_ms / k8_ms
-            print(f"{'':12s} {name}: dense K2 {d_ms:.4f} ms, equal to K8; "
-                  f"speedup_vs_dense {speedups[name]:.3f}  ({label})")
+            print(f"{'':12s} {name}: K8 {k8_ms:.4f} ms, dense K2 "
+                  f"{d_ms:.4f} ms (equal to K8), K8's bound "
+                  f"{last_check['bound_ms']:.4f} ms; speedup_vs_dense "
+                  f"{speedups[name]:.3f}  ({label})")
     summary("conv sweep (4 cases)", {k: dict.fromkeys(v, 0.0)
                                      for k, v in stats.items()},
             ("sparse_conv",))
     paths_since(_kernels, "conv_int8", k2_before, "wgmma_tma",
                 "the conv sweep's dense K2")
+    paths_since(_kernels, "sparse_conv", k8_before, "wgmma_tma",
+                "the conv sweep's K8 at 128 x 128")
 
     def sweep_lines(text, what):
         rows = [json.loads(ln) for ln in text.splitlines()
@@ -1233,7 +1241,7 @@ def main() -> None:
     rc, claunches = served_launches(
         _kernels, sweep, ["sparse_conv", "conv_int8"],
         "the conv sweep (bench --conv), 4 cases",
-        {"conv_int8": "wgmma_tma"})
+        {"conv_int8": "wgmma_tma", "sparse_conv": "wgmma_tma"})
     print(buf.getvalue(), end="")
     sweep_lines(buf.getvalue(), "bench --conv")
     t0 = time.perf_counter()
@@ -1756,6 +1764,7 @@ def main() -> None:
 
     # ---- 22. K8 at block_c 16, block_o 14 --------------------------------
     k_rng = np.random.default_rng(SEED + 4)
+    k8_before = dict(_kernels.KERNELS["sparse_conv"].variants)
     with torch.inference_mode():
         for name, C, O, Hs, k, s, p in cli.CONV_CASES:
             if name.split()[0] not in ("l3.c1", "l4.ds"):
@@ -1783,6 +1792,8 @@ def main() -> None:
             print(f"{'':12s} {name}: K8 at 16 x 14 {last_check['ms']:.4f} ms "
                   f"equal to the dense K2; at 128 x 128 "
                   f"{k8_case_ms[name]:.4f} ms  ({label})")
+    paths_since(_kernels, "sparse_conv", k8_before, "mma_sync",
+                "K8 at 16 x 14")
 
     # ---- 23. the probes ----------------------------------------------------
     with torch.inference_mode():

@@ -11,17 +11,17 @@ flags and is redone when either changes.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and adds
 one to the kernel's launch count, and to the count of the variant it was
-given (K2's, K3's, K4's and K7's paths, chosen by shape: K4's
+given (K2's, K3's, K4's, K7's and K8's paths, chosen by shape: K4's
 ``wgmma_tma``, ``wgmma_small`` for blocks of at most 16 x 16,
-``mma_sync``; K7's ``wgmma_tma``, ``mma_sync``).  The counts
+``mma_sync``; K7's and K8's ``wgmma_tma``, ``mma_sync``).  The counts
 let a run show that its main path really went through the kernels, and
 which path.
 
-K2, K3, K4 and K7 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``) whose
-tensor maps are encoded on the host by ``cuTensorMapEncodeTiled`` (and
-``cuTensorMapEncodeIm2col`` for K2): the library fetches them through
-``cudaGetDriverEntryPoint`` at run time, so the link line needs no
-``-lcuda``.  :func:`cluster_split` and :func:`split_share` are the
+K2, K3, K4, K7 and K8 share a Hopper main loop (``csrc/sm90_gemm_s8.cuh``)
+whose tensor maps are encoded on the host by ``cuTensorMapEncodeTiled``
+(and ``cuTensorMapEncodeIm2col`` for K2 and K8): the library fetches them
+through ``cudaGetDriverEntryPoint`` at run time, so the link line needs
+no ``-lcuda``.  :func:`cluster_split` and :func:`split_share` are the
 schedule of its split-K clusters, as the kernel computes it.
 """
 
@@ -96,7 +96,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("sparse_conv", "sparse_conv_launch",
                "resnet_accel_tpu_torch/csrc/sparse_conv.cu",
                "resnet_accel_tpu/ops/sparse_conv.py:150",
-               [_P] * 9 + [_I] * 13 + [_P]),
+               [_P] * 10 + [_I] * 17 + [_P]),
         Kernel("stem_int8", "stem_int8_launch",
                "resnet_accel_tpu_torch/csrc/stem_int8.cu",
                "resnet_accel_tpu/ops/fused_stem.py:82",
@@ -132,8 +132,8 @@ def variant_counts() -> Dict[str, Dict[str, int]]:
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    """The path of one K3 or K4 call: its variant, its N tile (columns a
-    CTA; 0 on K4's ``mma_sync`` path) and its cluster split along K."""
+    """The path of one K3, K4 or K8 call: its variant, its N tile (columns
+    a CTA; 0 on the ``mma_sync`` paths) and its cluster split along K."""
 
     variant: str
     bn: int

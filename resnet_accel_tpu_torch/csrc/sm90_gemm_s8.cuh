@@ -1,7 +1,8 @@
 // The Hopper main loop shared by K3 (csrc/matmul_int8.cu, dense), K4
 // (csrc/bsr_matmul.cu, block-sparse), K2 (csrc/conv_int8.cu, the conv
-// as an implicit GEMM) and K7 (csrc/expand_add.cu, a 1x1 conv joined to
-// its residual).  All compute
+// as an implicit GEMM), K7 (csrc/expand_add.cu, a 1x1 conv joined to
+// its residual) and K8 (csrc/sparse_conv.cu, the zero-skip conv: K4's
+// walk over K2's windows, kBsr and kConv at once).  All compute
 //   C[M, N] = A[M, K] @ W^T   for int8 A [M, K] and W [N, K], K-major
 //   acc = sum (int32, exact) + bias[n];  acc = relu(acc) if relu
 //   out = requant ? clip(rint(f32(acc) * factors[n]), -128, 127) : acc
@@ -13,7 +14,8 @@
 // requantizes without ReLU and joins the residual p.res in an epilogue of
 // its own (join_tile), exact without a conversion instruction.
 //
-// A tile is 128 rows of M by BN columns of N (K4: one block row):
+// A tile is 128 rows of M by BN columns of N (K4: one block row; K8: BN
+// columns of one, walking the block row's blocks):
 // - TMA.  The host encodes a tensor map over A [M, K] and one over the
 //   weight rows (cuTensorMapEncodeTiled, fetched through
 //   cudaGetDriverEntryPoint, so the library links without -lcuda), boxes
@@ -471,14 +473,27 @@ struct Walk {
   int blk0, sub;      // K4: the block row's first block; stages a block
 };
 
-template <int BN, bool kBsr>
+// kSub (K8): a block row is ceil(bh / BN) tiles of BN columns, each
+// walking the whole block row (p.n_tiles counts tiles, not block rows); a
+// tile past N walks nothing and stores nothing.
+template <int BN, bool kBsr, bool kSub = false>
 __device__ __forceinline__ Walk walk_of(const Params& p, int tile, int rank) {
   Walk wk;
   const int tile_n = tile % p.n_tiles;
   wk.m0 = (tile / p.n_tiles) * kBM;
   wk.sub = 1;
   wk.blk0 = 0;
-  if constexpr (kBsr) {
+  if constexpr (kSub) {
+    const int n_sub = (p.bh + BN - 1) / BN, br = tile_n / n_sub;
+    const int s0 = (tile_n - br * n_sub) * BN;  // the tile's first column
+    wk.n0 = br * p.bh + s0;
+    wk.ncols = min(min(BN, p.bh - s0), p.N - wk.n0);
+    wk.blk0 = p.row_ptr[br];
+    split_share(p.row_ptr[br + 1] - wk.blk0, p.split, rank, wk.first,
+                wk.nsteps);
+    wk.sub = p.bw / p.bk;
+    wk.nsteps = wk.ncols > 0 ? wk.nsteps * wk.sub : 0;
+  } else if constexpr (kBsr) {
     wk.n0 = tile_n * p.bh;
     wk.ncols = min(p.bh, p.N - wk.n0);
     wk.blk0 = p.row_ptr[tile_n];
@@ -507,12 +522,43 @@ __device__ __forceinline__ Col col_at(const Params& p, int n) {
           p.requant ? __ldg(p.factors + n) : 0.f};
 }
 
+// K7 and K8 round without a conversion instruction (F2I and FRND run at
+// a quarter of the FP32 rate or less on the H100): for |y| <= 2^22, y +
+// kRound lies in [2^23, 2^24), where floats are the integers, so the IEEE
+// round-to-nearest-even of that add is kRound + rint(y) -- ties to even
+// too, as kRound is even -- and its bits are 0x4B400000 + rint(y), the low
+// byte rint(y) in two's complement.  Every value rounded here is first
+// clamped into [-128, 127], and clamping to integer bounds commutes with
+// rint: clip(rint(y), lo, hi) == rint(clip(y, lo, hi)).
+constexpr float kRound = 12582912.f;  // 1.5 * 2^23, bits 0x4B400000
+constexpr int k127Bits = 0x42FE0000;  // the bits of 127.f
+
+// clip(rint(f32(x) * f), -128, 127) -- requant_i8 without ReLU -- as a
+// float (exact: an integer).
+__device__ __forceinline__ float requant_f32(int x, float f) {
+  const float y = __fmul_rn(__int2float_rn(x), f);
+  return __fadd_rn(__fadd_rn(fminf(fmaxf(y, -128.f), 127.f), kRound),
+                   -kRound);
+}
+
 // bias, ReLU and requant of the int32 sum x at a column.
 __device__ __forceinline__ int finish(const Params& p, int x, Col col) {
   x += col.bias;
   if (p.relu) x = max(x, 0);
   if (p.requant) x = requant_i8(x, col.factor);
   return x;
+}
+
+// K8's finish in its TMA-store epilogue (stage_pairs): bias, ReLU and
+// requant as finish computes them, the int8 result the low byte of the
+// bits returned -- one conversion a value (int to float) where requant_i8
+// runs three.
+__device__ __forceinline__ uint32_t finish_bits(const Params& p, int x,
+                                                Col col) {
+  x += col.bias;
+  if (p.relu) x = max(x, 0);
+  const float y = __fmul_rn(__int2float_rn(x), col.factor);
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(y, -128.f), 127.f), kRound));
 }
 
 // K2: the residual join (epilogue.cuh) of n <= 8 requantized int8 values q
@@ -621,6 +667,32 @@ __device__ __forceinline__ void stage_fragment(const Params& p,
   }
 }
 
+// K8's int8 epilogue into shared ``tile`` (out_offset's layout) for the
+// TMA store, in the fragment's own layout: each lane's pair of columns
+// (8j + 2lq, +1) of rows r0 and r0 + 8 as one 2-byte store, requantized
+// by finish_bits -- no transpose across the quad.  A warp's stores hit 32
+// distinct banks: its 8 rows differ in the low bit or in the swizzle.
+// Columns past ncols lie past N (the tile is its block's, or the last).
+template <int BN>
+__device__ __forceinline__ void stage_pairs(const Params& p,
+                                            const int (&acc)[BN / 2],
+                                            const Walk& wk, int r0, int lq,
+                                            uint8_t* tile) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * lq;
+    const Col c0 = c < wk.ncols ? col_at(p, wk.n0 + c) : Col{};
+    const Col c1 = c + 1 < wk.ncols ? col_at(p, wk.n0 + c + 1) : Col{};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t lo = finish_bits(p, acc[4 * j + 2 * h], c0);
+      const uint32_t hi = finish_bits(p, acc[4 * j + 2 * h + 1], c1);
+      *reinterpret_cast<uint16_t*>(tile + out_offset(r0 + 8 * h, c)) =
+          static_cast<uint16_t>(__byte_perm(lo, hi, 0x0040u));
+    }
+  }
+}
+
 // The epilogue of a whole sum straight from the accumulator fragment to
 // global memory (split 1, where the TMA store does not take the output).
 // int8 out, N % 8 == 0: quad_bytes, so that each lane stores 8 bytes and
@@ -701,25 +773,6 @@ __device__ __forceinline__ void store_fragment(const Params& p,
 }
 
 // ---- K7's epilogue ----------------------------------------------------
-//
-// K7 rounds without a conversion instruction (F2I and FRND run at a
-// quarter of the FP32 rate or less on the H100): for |y| <= 2^22, y +
-// kRound lies in [2^23, 2^24), where floats are the integers, so the IEEE
-// round-to-nearest-even of that add is kRound + rint(y) -- ties to even
-// too, as kRound is even -- and its bits are 0x4B400000 + rint(y), the low
-// byte rint(y) in two's complement.  Every value rounded here is first
-// clamped into [-128, 127], and clamping to integer bounds commutes with
-// rint: clip(rint(y), lo, hi) == rint(clip(y, lo, hi)).
-constexpr float kRound = 12582912.f;  // 1.5 * 2^23, bits 0x4B400000
-constexpr int k127Bits = 0x42FE0000;  // the bits of 127.f
-
-// clip(rint(f32(x) * f), -128, 127) -- requant_i8 without ReLU -- as a
-// float (exact: an integer).
-__device__ __forceinline__ float requant_f32(int x, float f) {
-  const float y = __fmul_rn(__int2float_rn(x), f);
-  return __fadd_rn(__fadd_rn(fminf(fmaxf(y, -128.f), 127.f), kRound),
-                   -kRound);
-}
 
 // The join of requantized z with residual r (exact floats) --
 // epilogue.cuh's residual_join, ReLU included:
@@ -817,17 +870,19 @@ __device__ __forceinline__ void load_res(const Params& p,
 }
 
 // Grid: with split 1, persistent: CTA b walks tiles b, b + gridDim.x, ...
-// (tile t: N tile -- K4's block row -- t % n_tiles, M tile t / n_tiles),
-// the producer running ahead into the next tile while the consumers store
-// this one.  With split > 1: one tile a cluster of ``split`` CTAs along x.
-// kConv (K2, kTma, split 1 only): A is the conv window of x, through
-// map_a's im2col mode; the epilogue joins the residual where p.res is
-// given.  kExpand (K7, BN 128, kTma, split 1 only): the accumulator starts
-// at the bias; each tile's residual arrives through map_res (one box of
-// 128 bytes by kBM rows) in one of two tile buffers beside the ring --
-// consumer thread 0 loads the next tile's as this tile's epilogue starts
-// -- is joined in place (join_tile) and leaves through map_out
-// (p.tma_out).
+// (tile t: N tile -- K4's block row, K8's part of one -- t % n_tiles, M
+// tile t / n_tiles), the producer running ahead into the next tile while
+// the consumers store this one.  With split > 1: one tile a cluster of
+// ``split`` CTAs along x.
+// kConv (K2, K8, kTma, split 1 only): A is the conv window of x, through
+// map_a's im2col mode -- a K byte ax is tap ax / C, channel ax % C, also
+// where kBsr (K8) makes it a stored block's column -- and the epilogue
+// joins the residual where p.res is given.  kExpand (K7, BN 128, kTma,
+// split 1 only): the accumulator starts at the bias; each tile's residual
+// arrives through map_res (one box of 128 bytes by kBM rows) in one of
+// two tile buffers beside the ring -- consumer thread 0 loads the next
+// tile's as this tile's epilogue starts -- is joined in place (join_tile)
+// and leaves through map_out (p.tma_out).
 template <int BN, bool kBsr, bool kTma, bool kConv = false,
           int kExpand = kNoExpand>
 __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
@@ -868,7 +923,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
     } else {
       int stage = 0, phase = 0;
       for (int tile = tile0; tile < tiles; tile += tile_step) {
-        const Walk wk = walk_of<BN, kBsr>(p, tile, rank);
+        const Walk wk = walk_of<BN, kBsr, kBsr && kConv>(p, tile, rank);
         Pixel px{};  // K2: where the tile's first window starts
         if constexpr (kConv) px = pixel_of(p, wk.m0);
         for (int s = 0; s < wk.nsteps; ++s) {
@@ -878,6 +933,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
             wx = (s % wk.sub) * p.bk;
             ax = p.col_idx[blk] * p.bw + wx;
             wy = blk * p.bh;
+            if constexpr (kConv) wy += wk.n0 % p.bh;  // K8: the tile's rows
           } else {
             ax = wx = (wk.first + s) * p.bk;
             wy = wk.n0;
@@ -936,7 +992,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
       if (tid == 0 && tile0 < tiles)
         load_res<BN, C>(p, &map_res, tile0, full, 0);
     for (int tile = tile0; tile < tiles; tile += tile_step) {
-      const Walk wk = walk_of<BN, kBsr>(p, tile, rank);
+      const Walk wk = walk_of<BN, kBsr, kBsr && kConv>(p, tile, rank);
       int acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -998,7 +1054,11 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
           // both warpgroups' wgmmas have read the stage's W
           asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
           const uint32_t tile = ring_w + prev * C::kW;
-          stage_fragment<BN, kConv>(p, acc, wk, r0, lq, smem + (tile - base));
+          if constexpr (kBsr && kConv)
+            stage_pairs<BN>(p, acc, wk, r0, lq, smem + (tile - base));
+          else
+            stage_fragment<BN, kConv>(p, acc, wk, r0, lq,
+                                      smem + (tile - base));
           // the generic-proxy stores, visible to the TMA's async proxy
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
           asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
@@ -1038,7 +1098,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BN>::kMinBlocks)
   // This rank's rows, 16 columns a unit: the partials of every rank added,
   // then the epilogue, then the stores.
   if (tid < kConsumers) {
-    const Walk wk = walk_of<BN, kBsr>(p, tile0, rank);
+    const Walk wk = walk_of<BN, kBsr, kBsr && kConv>(p, tile0, rank);
     const int* st = reinterpret_cast<const int*>(smem);
     const int rows = kBM / p.split, per_row = BN / 16;
     const int esize = p.requant ? 1 : 4;

@@ -1,4 +1,4 @@
-"""Kernel A/B timings on the card: K1-K5, K7 and K10 at served shapes.
+"""Kernel A/B timings on the card: K1-K5, K7, K8 and K10 at served shapes.
 
 Their times, for an A/B of two checkouts of this package in one call on
 the card.
@@ -40,6 +40,10 @@ model: its c3 weights, biases, factors and scales, joined by the proven
 reciprocal where the checkout's model finds one; seeded int8 inputs and
 residuals), summed by stage and in all, with ``torch._int_mm``'s time on
 the same products;
+K8 at the conv sweep's four cases (``bench --conv``'s data: batch 64,
+128 x 128 tap blocks zeroed at 0.7, seed 1), each case and their sum, with
+the dense K2 on the same weights timed beside each, and at l3.c1 and l4.ds
+with (16, 14) blocks (``chip_smoke.py`` phase 22's data, seed 4);
 R18: the checkout's whole ResNet-18 forward at batch 128 through
 ``InferenceEngine.benchmark`` (seed-0 weights, median of ``--iters``),
 dense and pruned 0.7 in 128 x 128 blocks (K4's Hopper path); R50: its
@@ -67,9 +71,9 @@ chunk size (key tiles a CTA) forced in place of ``flash_plan``'s.
 
     python resnet_accel_tpu_torch/kernel_ab.py --repo P --repo C --sass
 
-compiles the sources K2, K3, K4 and K7 share the main loop in
+compiles the sources K2, K3, K4, K7 and K8 share the main loop in
 (``conv_int8.cu``, ``matmul_int8.cu``, ``bsr_matmul.cu``,
-``expand_add.cu``) to cubins in each checkout (``nvcc -cubin``, the
+``expand_add.cu``, ``sparse_conv.cu``) to cubins in each checkout (``nvcc -cubin``, the
 package's flags, ``-Xptxas -v``), disassembles them (``cuobjdump
 -sass``) and prints, for each kernel of the first checkout, whether the
 second holds the same instructions (addresses and the kernels' names left
@@ -89,7 +93,10 @@ K1,K10``: K10's too; ``--cases K4``: K4's; ``--cases K7``: K7 at the 16
 c3 with the join divided, the join knocked out, the residual read from
 L2 (one place for every tile) instead of device memory, each residual
 loaded as its tile's epilogue starts instead of one epilogue ahead, and
-no epilogue arithmetic).  The stem's ablations edit the
+no epilogue arithmetic; ``--cases K8``: K8's Hopper route at the sweep's
+four cases with no stores, with no block walked, and returning at once,
+each case also timed as two calls back to back, ``pair_ms``).
+The stem's ablations edit the
 tile K1 and K10 share (``csrc/stem_mma_tile.cuh``), so each reaches both
 but ``k1_no_loads`` (fp32 loads), ``k10_no_loads`` (int8 loads) and
 ``k10_no_requant`` (unpooled K10's requant).
@@ -104,6 +111,17 @@ import statistics
 import subprocess
 import sys
 import time
+
+#: The main loop's kConv kernels (K2, K8) store nothing.
+_CONV_NO_EPILOGUE = [
+    ("sm90_gemm_s8.cuh",
+     "const bool via_tma =\n"
+     "          C::kTmaOut && p.tma_out && p.split == 1 && wk.nsteps > 0;",
+     "const bool via_tma = false;"),
+    ("sm90_gemm_s8.cuh",
+     "        store_fragment<BN, kConv>(p, acc, wk, r0, lq);",
+     "        if (!kConv) store_fragment<BN, kConv>(p, acc, wk, r0, lq);"),
+]
 
 #: Parts of a kernel knocked out for ``--ablate``: (source under csrc/,
 #: text, replacement) edits, each of which must apply once.
@@ -150,14 +168,25 @@ ABLATIONS = {
          "            const int q1 = max(acc[j][2 * h + 1] + bs[o + 1], 0) >> 8;"),
     ],
     # K2 sums and loads as it does, but stores nothing: its main loop alone
-    "k2_no_epilogue": [
+    "k2_no_epilogue": _CONV_NO_EPILOGUE,
+    # K8's Hopper route sums and loads as it does, but stores nothing (the
+    # same edits as K2's: both are kConv)
+    "k8_no_epilogue": _CONV_NO_EPILOGUE,
+    # K8's Hopper route walks no block: the launch, the barriers' set-up
+    # and the bias-only epilogue of every tile
+    "k8_no_walk": [
         ("sm90_gemm_s8.cuh",
-         "const bool via_tma =\n"
-         "          C::kTmaOut && p.tma_out && p.split == 1 && wk.nsteps > 0;",
-         "const bool via_tma = false;"),
+         "wk.nsteps = wk.ncols > 0 ? wk.nsteps * wk.sub : 0;",
+         "wk.nsteps = 0;"),
+    ],
+    # K8's Hopper route returns at once: the launch of its grid alone
+    "k8_empty": [
         ("sm90_gemm_s8.cuh",
-         "        store_fragment<BN, kConv>(p, acc, wk, r0, lq);",
-         "        if (!kConv) store_fragment<BN, kConv>(p, acc, wk, r0, lq);"),
+         "  using C = Cfg<BN, kExpand>;\n  extern __shared__ uint8_t "
+         "smem_raw[];",
+         "  if constexpr (kBsr && kConv) return;\n"
+         "  using C = Cfg<BN, kExpand>;\n  extern __shared__ uint8_t "
+         "smem_raw[];"),
     ],
     # K4's small-block path with no tensor-core work: the loads, barriers
     # and stores stay
@@ -395,6 +424,17 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
              plan_of("expand_plan", *_k7_plan_args(torch, dev)))
         library["K7 resnet50 16 c3 batch 128"] = sum(lib_stages.values())
 
+    # ---- K8 ----
+    if want("K8"):
+        total = 0.0
+        for case, fn, dense, plan, sweep in _k8_calls(torch, ops, dev):
+            ms = _time_ms(torch, fn, iters)
+            emit(case, ms, plan)
+            if sweep:
+                total += ms
+                emit(f"K8 dense K2 {case[3:]}", _time_ms(torch, dense, iters))
+        emit("K8 sweep 4 cases 128x128 batch 64", total)
+
     # ---- K5 ----
     sdpa = torch.nn.functional.scaled_dot_product_attention
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -566,6 +606,45 @@ def _k2_call(torch, ops, rng, dev, depth, name, C, O, H, k, s):
     return lambda: ops.conv2d_int8(x, w, bias, f, **kw)
 
 
+def _k8_calls(torch, ops, dev):
+    """K8's cases: (name, K8 call, dense K2 call on the same weights, K8's
+    plan, whether the case is one of the sweep's four at 128 x 128).  The
+    sweep's data as ``bench --conv`` draws it (seed 1), then l3.c1 and
+    l4.ds at (16, 14) as ``chip_smoke.py`` phase 22 draws them (seed 4);
+    factors 0.001 with ReLU."""
+    import numpy as np
+
+    from resnet_accel_tpu_torch.cli import CONV_CASES
+    from resnet_accel_tpu_torch.sparse import (device_pack, pack_conv_bsr,
+                                               tap_sparse_weight)
+    cl = torch.channels_last
+    plan_fn = getattr(ops, "sparse_conv_plan", None)   # older checkouts
+    for seed, blocks in ((1, (128, None)), (4, (14, 16))):
+        rng = np.random.default_rng(seed)
+        for name, C, O, H, k, s, p in CONV_CASES:
+            if blocks[0] == 14 and name.split()[0] not in ("l3.c1", "l4.ds"):
+                continue
+            x = torch.from_numpy(rng.integers(
+                -128, 128, (64, C, H, H)).astype(np.int8)).to(dev).contiguous(
+                memory_format=cl)
+            w = tap_sparse_weight(rng, O, C, k, 0.7, *blocks)
+            f = torch.full((O,), 0.001, dtype=torch.float32, device=dev)
+            zero = torch.zeros(O, dtype=torch.int32, device=dev)
+            wd = ops.pack_weight(w.reshape(O, -1), C, k, dev)
+            pk = device_pack(pack_conv_bsr(w, padding=p, block_o=blocks[0],
+                                           block_c=blocks[1]), dev)
+            tag = "128x128" if blocks[0] == 128 else "16x14"
+            yield (f"K8 {name} {tag} {pk.nnz_source}/{pk.total_source} "
+                   f"batch 64",
+                   lambda x=x, pk=pk, f=f, s=s: ops.sparse_conv2d_int8(
+                       x, pk, factors=f, relu=True, stride=s),
+                   lambda x=x, wd=wd, zero=zero, f=f, s=s, p=p:
+                   ops.conv2d_int8(x, wd, zero, f, stride=s, padding=p,
+                                   relu=True),
+                   None if plan_fn is None else str(plan_fn(x, pk)),
+                   blocks[0] == 128)
+
+
 def _k2_tile_sweep(repo: str, iters: int, tiles, trunks) -> None:
     """K2 at every trunk conv with each N tile of ``tiles`` forced."""
     sys.path.insert(0, os.path.abspath(repo))
@@ -596,7 +675,7 @@ def _k2_tile_sweep(repo: str, iters: int, tiles, trunks) -> None:
 
 #: The sources whose kernels run sm90_gemm_s8.cuh's main loop.
 SASS_SOURCES = ("conv_int8.cu", "matmul_int8.cu", "bsr_matmul.cu",
-                "expand_add.cu")
+                "expand_add.cu", "sparse_conv.cu")
 
 
 def _sass(repo: str, flags) -> dict:
@@ -763,7 +842,8 @@ def _ablated(repo: str, name: str) -> str:
 def _ablation_run(repo: str, iters: int, trunks, name: str,
                   cases=()) -> None:
     """K1 and K10 at batch 128, K2 at ResNet-18's 19 convs, K4's 14 x 14
-    cases, K7 at ResNet-50's 16 c3 and K5 at the prefill, on ``repo``;
+    cases, K7 at ResNet-50's 16 c3, K8 at the conv sweep's four cases and
+    K5 at the prefill, on ``repo``;
     ``cases`` as :func:`_run` takes them."""
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
@@ -809,6 +889,15 @@ def _ablation_run(repo: str, iters: int, trunks, name: str,
         print(json.dumps({"ablation": name, "case": "K7 resnet50 16 c3 "
                           "batch 128", "ms": sum(stages.values())}),
               flush=True)
+    for case, fn, _, _, sweep in _k8_calls(torch, ops, dev) if (
+            want("K8")) else ():
+        if sweep:   # pair_ms: two calls back to back, the second without
+            #         the timed run's start-up after the card's spin
+            print(json.dumps({"ablation": name, "case": case,
+                              "ms": _time_ms(torch, fn, iters),
+                              "pair_ms": _time_ms(
+                                  torch, lambda: (fn(), fn()), iters)}),
+                  flush=True)
     for BH in (8, 64) if want("K5") else ():
         q, k, v = _k5_inputs(torch, dev, BH)
         err = (ops.flash_attention(q, k, v, causal=True)

@@ -55,6 +55,7 @@ from resnet_accel_tpu_torch.ops.pooling import (
 from resnet_accel_tpu_torch.ops.sparse_conv import (
     sparse_conv2d_int8,
     sparse_conv2d_int8_plain,
+    sparse_conv_plan,
 )
 from resnet_accel_tpu_torch.ops.stem_pack import (
     quantize_s2d,
@@ -107,6 +108,7 @@ __all__ = [
     "space_to_depth_nchw",
     "sparse_conv2d_int8",
     "sparse_conv2d_int8_plain",
+    "sparse_conv_plan",
     "stem_conv_pool",
     "stem_conv_pool_int8",
     "stem_conv_pool_int8_plain",

@@ -16,6 +16,15 @@ and return [N, c_out, Ho, Wo] in channels-last memory order: int8 with
 ``factors``, int32 without.  ``sparse_conv2d_int8`` launches the CUDA
 kernel ``csrc/sparse_conv.cu`` for CUDA tensors and runs
 :func:`sparse_conv2d_int8_plain` for CPU tensors.
+
+The kernel has two routes, chosen by block shape and alignment
+(:func:`sparse_conv_plan`) and counted by ``_kernels.variant_counts()``:
+``wgmma_tma``, the Hopper main loop (``csrc/sm90_gemm_s8.cuh``) walking
+each output block's stored blocks as K4 walks a block row, over the conv
+windows that K2 reads through a TMA map in im2col mode (the blocks'
+``col`` gives their place in K2's (kh, kw, c) K order); ``mma_sync`` for
+the blocks its tiles do not take (the reference's (16, 14)) and unaligned
+bases.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from resnet_accel_tpu_torch import _kernels
+from resnet_accel_tpu_torch._kernels import GemmPlan
 from resnet_accel_tpu_torch.ops.epilogue import requantize
 from resnet_accel_tpu_torch.sparse.conv_bsr import PackedConvBSR
 
@@ -80,6 +90,30 @@ def sparse_conv2d_int8_plain(
     return out.view(N, Ho, Wo, -1).permute(0, 3, 1, 2)
 
 
+def sparse_conv_plan(x: torch.Tensor, packed: PackedConvBSR) -> GemmPlan:
+    """K8's route for ``x`` against ``packed``, from shapes and pointers.
+
+    ``wgmma_tma``, the Hopper main loop, where its tiles take the blocks
+    and TMA the bases: ``block_c % 32 == 0`` (a K stage is 128, 64 or 32
+    of a block's channels, so C % 32 == 0 too), ``block_o % 8 == 0`` (each
+    tile's columns start on 8 bytes), x and the blocks 16-byte aligned.
+    Its N tile is 64 channels of one output block, ``ceil(block_o / 64)``
+    tiles a block each walking the block's whole list: on the H100 two
+    64-wide tiles a 128-wide block beat one 128-wide tile at three cases
+    of the conv sweep and tied at the fourth (``kernel_ab.py --cases K8``;
+    PERF.md §6).  No split along K.  Any other block or base:
+    ``mma_sync``, whose tiles take any block."""
+    if (packed.block_c % 32 == 0 and packed.block_o % 8 == 0
+            and x.data_ptr() % 16 == 0
+            and packed.blocks.data_ptr() % 16 == 0):
+        return GemmPlan("wgmma_tma", 64, 1)
+    return GemmPlan("mma_sync", 0, 1)
+
+
+#: The C launcher's route codes, by variant.
+_PATHS = {"mma_sync": 0, "wgmma_tma": 1}
+
+
 def sparse_conv2d_int8(
     x: torch.Tensor,
     packed: PackedConvBSR,
@@ -92,7 +126,8 @@ def sparse_conv2d_int8(
     """Zero-skip conv: ``x`` [N, C, H, W] int8 (channels-last on a card),
     ``packed`` from ``device_pack``, optional ``bias`` [c_out] int32 and
     ``factors`` [c_out] float32 -> [N, c_out, Ho, Wo], int8 with
-    ``factors`` and int32 without.  Any block shape the packer takes."""
+    ``factors`` and int32 without.  Any block shape the packer takes; the
+    kernel's route is :func:`sparse_conv_plan`'s."""
     if x.device.type == "cpu":
         return sparse_conv2d_int8_plain(x, packed, bias=bias, factors=factors,
                                         relu=relu, stride=stride)
@@ -106,7 +141,7 @@ def sparse_conv2d_int8(
     _kernels.check(packed.blocks, "blocks", torch.int8, (nnz, bo, bc), dev)
     _kernels.check(packed.o_ptr, "o_ptr", torch.int32, (packed.n_ob + 1,),
                    dev)
-    for name in ("kh", "kw", "cb"):
+    for name in ("kh", "kw", "cb", "col"):
         _kernels.check(getattr(packed, name), name, torch.int32, (nnz,), dev)
     if bias is not None:
         _kernels.check(bias, "bias", torch.int32, (O,), dev)
@@ -115,11 +150,14 @@ def sparse_conv2d_int8(
     out = torch.empty((N, O, Ho, Wo), device=dev,
                       dtype=torch.int8 if factors is not None
                       else torch.int32, memory_format=torch.channels_last)
+    plan = sparse_conv_plan(x, packed)
     _kernels.launch(
         "sparse_conv", dev, x.data_ptr(), packed.blocks.data_ptr(),
         packed.o_ptr.data_ptr(), packed.kh.data_ptr(), packed.kw.data_ptr(),
-        packed.cb.data_ptr(), None if bias is None else bias.data_ptr(),
+        packed.cb.data_ptr(), packed.col.data_ptr(),
+        None if bias is None else bias.data_ptr(),
         None if factors is None else factors.data_ptr(), out.data_ptr(),
-        N, H, W, C, Ho, Wo, stride, packed.padding, O, bc, bo, packed.n_ob,
-        int(relu))
+        N, H, W, C, Ho, Wo, packed.kernel, stride, packed.padding, O, bc, bo,
+        packed.n_ob, nnz, int(relu), _PATHS[plan.variant], plan.bn,
+        variant=plan.variant)
     return out

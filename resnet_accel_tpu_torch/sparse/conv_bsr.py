@@ -10,8 +10,10 @@ are all zero is not stored.
 
 :func:`device_pack` turns a ``ConvBSR`` into what kernel K8 reads: the
 stored blocks grouped by output block as a CSR (``o_ptr``), each block
-K-contiguous ``[block_o, block_c]`` (the ``mma.sync`` B fragment), with
-the chunk padding dropped.
+K-contiguous ``[block_o, block_c]`` (the ``mma.sync`` B fragment, and a
+block row of K4's ``[nnz * block_h, block_w]`` weight on the Hopper
+route), with the chunk padding dropped, and each block's column in the
+dense conv's (kh, kw, c) K order (``col``), the Hopper route's walk.
 """
 
 from __future__ import annotations
@@ -138,13 +140,22 @@ class PackedConvBSR:
     blocks of output block ``ob`` are ``blocks[o_ptr[ob]:o_ptr[ob + 1]]``
     (in the packer's (kh, kw, cb) order), block ``i`` at tap
     (``kh[i]``, ``kw[i]``) and channel block ``cb[i]``, stored
-    [block_o, block_c] so a row of output channel weights is contiguous."""
+    [block_o, block_c] so a row of output channel weights is contiguous.
+
+    ``col[i]`` is block ``i``'s block column in the dense conv's K order
+    (kh, kw, c), ``(kh * kernel + kw) * (c_in / block_c) + cb``: with
+    ``o_ptr`` as row pointers it makes the stored blocks a BSR weight over
+    the conv's patch matrix, block ``i`` covering its K bytes
+    ``[col * block_c, col * block_c + block_c)`` -- tap ``kh * kernel +
+    kw``, channels from ``cb * block_c`` -- which the Hopper route walks
+    (K4's walk over K2's im2col windows)."""
 
     blocks: torch.Tensor     # [nnz_source, block_o, block_c] int8
     o_ptr: torch.Tensor      # [n_ob + 1] int32
     kh: torch.Tensor         # [nnz_source] int32
     kw: torch.Tensor
     cb: torch.Tensor
+    col: torch.Tensor        # [nnz_source] int32
     kernel: int
     padding: int
     c_in: int
@@ -172,12 +183,13 @@ def device_pack(cbsr: ConvBSR, device) -> PackedConvBSR:
         return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(device)
 
     blocks = np.asarray(cbsr.blocks[:n][order], np.int8).transpose(0, 2, 1)
+    kh, kw, cb = (a[:n][order] for a in (cbsr.kh_of, cbsr.kw_of, cbsr.c_of))
+    col = (kh * cbsr.kernel + kw) * (cbsr.c_in // cbsr.block_c) + cb
     return PackedConvBSR(
         blocks=put(blocks.reshape(n, cbsr.block_o, cbsr.block_c), np.int8),
         o_ptr=put(o_ptr, np.int32),
-        kh=put(cbsr.kh_of[:n][order], np.int32),
-        kw=put(cbsr.kw_of[:n][order], np.int32),
-        cb=put(cbsr.c_of[:n][order], np.int32),
+        kh=put(kh, np.int32), kw=put(kw, np.int32), cb=put(cb, np.int32),
+        col=put(col, np.int32),
         kernel=cbsr.kernel, padding=cbsr.padding, c_in=cbsr.c_in,
         c_out=cbsr.c_out, block_c=cbsr.block_c, block_o=cbsr.block_o,
         nnz_source=cbsr.nnz_source, total_source=cbsr.total_source)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from resnet_accel_tpu_torch import _kernels, ops
+from resnet_accel_tpu_torch.cli import CONV_CASES
 from resnet_accel_tpu_torch.models.resnet import trunk_convs
 from resnet_accel_tpu_torch.ops import conv as conv_mod
 
@@ -750,10 +751,33 @@ def _sconv_case(cuda, N, C, O, H, k, stride, block_o, block_c, sparsity,
     return w, x, packed, bias, f
 
 
+def _sconv_once(x, packed, variant, **kw):
+    """One K8 call: one launch, on route ``variant`` (its plan's)."""
+    assert ops.sparse_conv_plan(x, packed).variant == variant
+    before = _kernels.launch_counts()["sparse_conv"]
+    routes = dict(_kernels.variant_counts().get("sparse_conv", {}))
+    got = ops.sparse_conv2d_int8(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["sparse_conv"] == before + 1
+    routes[variant] = routes.get(variant, 0) + 1
+    assert _kernels.variant_counts()["sparse_conv"] == routes
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    return got
+
+
+def _sconv_dense(x, w, bias, f, stride, k, cuda):
+    """The dense K2 on the same weights, ReLU and requant."""
+    O, C = w.shape[:2]
+    wd = ops.pack_weight(w.reshape(O, -1), C, k, cuda)
+    return ops.conv2d_int8(x, wd, bias, f, stride=stride, padding=k // 2,
+                           relu=True)
+
+
 # tests/test_sparse_conv.py's shapes (3x3 stride 1 and 2, the 1x1/s2
 # downsample at block_c 64 -- here with two output blocks, one of them
 # empty --, 64-wide blocks, O = 100 at block_o 104) and the conv sweep's
-# l3.c1 at batch 64 (one of its two output blocks empty too).
+# l3.c1 at batch 64 (one of its two output blocks empty too): all on the
+# Hopper route.
 @pytest.mark.parametrize("N,C,O,H,k,stride,block_o,block_c,sparsity", [
     (2, 128, 128, 10, 3, 1, 128, 128, 0.5), (2, 128, 128, 9, 3, 2, 128, 128,
                                              0.4),
@@ -770,18 +794,12 @@ def test_sparse_conv(cuda, N, C, O, H, k, stride, block_o, block_c, sparsity,
         kw.update(bias=bias, relu=True)
     if mode == "requant":
         kw.update(factors=f)
-    before = _kernels.launch_counts()["sparse_conv"]
-    got = ops.sparse_conv2d_int8(x, packed, **kw)
-    torch.cuda.synchronize()
-    assert _kernels.launch_counts()["sparse_conv"] == before + 1
-    assert got.is_contiguous(memory_format=torch.channels_last)
+    got = _sconv_once(x, packed, "wgmma_tma", **kw)
     want = ops.sparse_conv2d_int8_plain(x, packed, **kw)
     assert got.dtype == want.dtype and torch.equal(got, want)
     if mode == "requant":
         # the dense K2 on the same weights gives the same bits
-        wd = ops.pack_weight(w.reshape(O, -1), C, k, cuda)
-        assert torch.equal(got, ops.conv2d_int8(
-            x, wd, bias, f, stride=stride, padding=k // 2, relu=True))
+        assert torch.equal(got, _sconv_dense(x, w, bias, f, stride, k, cuda))
         assert int(want.max()) - int(want.min()) > 100
 
 
@@ -794,40 +812,105 @@ def test_sparse_conv_empty_output_block(cuda):
     w[128:] = 0
     packed = device_pack(pack_conv_bsr(w, padding=1), cuda)
     assert packed.o_ptr.tolist()[1] == packed.o_ptr.tolist()[2]
-    got = ops.sparse_conv2d_int8(x, packed, bias=bias, factors=f, relu=True)
-    torch.cuda.synchronize()
+    got = _sconv_once(x, packed, "wgmma_tma", bias=bias, factors=f,
+                      relu=True)
     assert torch.equal(got, ops.sparse_conv2d_int8_plain(
         x, packed, bias=bias, factors=f, relu=True))
     empty = ops.requantize(bias[128:].clamp_min(0), f[128:])
     assert torch.equal(got[:, 128:], empty.view(1, -1, 1, 1).expand(
         2, -1, 6, 6))
-    zeros = ops.sparse_conv2d_int8(x, device_pack(pack_conv_bsr(
-        np.zeros_like(w), padding=1), cuda))
-    torch.cuda.synchronize()
+    zeros = _sconv_once(x, device_pack(pack_conv_bsr(
+        np.zeros_like(w), padding=1), cuda), "wgmma_tma")
     assert zeros.dtype == torch.int32 and not zeros.any()
 
 
-# Blocks off the 32-channel step: (block_c, block_o) = (16, 14), the
-# conv sweep's l3.c1 and l4.ds shapes at batch 2 (O not a multiple of
-# 14, so the packer's padded channels must never be stored), and (8, 4).
+# The conv sweep's four cases (ResNet-18's strided convs at ImageNet
+# widths, 128 x 128 blocks at 0.7) at batch 4, int8 and int32 out.
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+@pytest.mark.parametrize("requant", [True, False])
+def test_sparse_conv_sweep_shapes(cuda, case, requant):
+    _, C, O, H, k, stride, _ = case
+    w, x, packed, bias, f = _sconv_case(cuda, 4, C, O, H, k, stride, 128,
+                                        None, 0.7, O + k)
+    kw = dict(stride=stride, bias=bias, relu=True,
+              factors=f if requant else None)
+    got = _sconv_once(x, packed, "wgmma_tma", **kw)
+    assert torch.equal(got, ops.sparse_conv2d_int8_plain(x, packed, **kw))
+    if requant:
+        assert torch.equal(got, _sconv_dense(x, w, bias, f, stride, k, cuda))
+
+
+# The Hopper route's tiles (64 channels of one output block): block_c 32,
+# 64 and 128 (K stages of 32, 64 and 128 bytes); block_o 32, 64, 96, 128
+# and 256 (one to four tiles a block); partial last output blocks
+# (c_out % block_o != 0: a tile short of 64 columns, a tile past c_out
+# that stores nothing, int8 by TMA store or from the fragments); no
+# stored block at all.
+@pytest.mark.parametrize("N,C,O,H,k,stride,block_o,block_c,sparsity", [
+    (2, 64, 128, 14, 3, 1, 128, 32, 0.5), (2, 128, 256, 14, 3, 2, 64, 64,
+                                           0.5),
+    (2, 256, 512, 7, 3, 1, 256, 128, 0.5), (3, 64, 100, 9, 3, 2, 32, 32,
+                                            0.4),
+    (2, 128, 200, 8, 3, 1, 128, 64, 0.3), (2, 64, 144, 8, 3, 1, 128, 32,
+                                           0.3),
+    (2, 64, 192, 8, 3, 2, 96, 32, 0.4), (2, 64, 96, 8, 1, 2, 64, 32, 0.5),
+    (2, 128, 256, 9, 3, 2, 128, None, 1.0), (1, 64, 64, 5, 1, 1, 64, 64,
+                                             1.0)])
+@pytest.mark.parametrize("requant", [True, False])
+def test_sparse_conv_hopper_tiles(cuda, N, C, O, H, k, stride, block_o,
+                                  block_c, sparsity, requant):
+    w, x, packed, bias, f = _sconv_case(cuda, N, C, O, H, k, stride,
+                                        block_o, block_c, sparsity,
+                                        C + O + H + k)
+    if sparsity == 1.0:
+        assert packed.nnz_source == 0
+    kw = dict(stride=stride, bias=bias, relu=True,
+              factors=f if requant else None)
+    got = _sconv_once(x, packed, "wgmma_tma", **kw)
+    assert torch.equal(got, ops.sparse_conv2d_int8_plain(x, packed, **kw))
+    if requant:
+        assert torch.equal(got, _sconv_dense(x, w, bias, f, stride, k, cuda))
+
+
+@pytest.mark.parametrize("offset", [8, 4])
+def test_sparse_conv_x_off_16_bytes(cuda, offset):
+    """The conv sweep's l3.c1 at batch 2 with x ``offset`` bytes off a
+    16-byte boundary: TMA does not take it, so K8 runs mma_sync (byte
+    loads of x), and gives the bits of the plain version, of the dense K2
+    and of wgmma_tma on an aligned copy."""
+    N, C, O, H, k, stride = 2, 128, 256, 28, 3, 2
+    w, x, packed, bias, f = _sconv_case(cuda, N, C, O, H, k, stride, 128,
+                                        None, 0.7, 11)
+    flat = torch.empty(x.numel() + offset, dtype=torch.int8, device=cuda)
+    off = flat[offset:].view(N, H, H, C).permute(0, 3, 1, 2)
+    off.copy_(x)
+    assert off.is_contiguous(memory_format=torch.channels_last)
+    assert off.data_ptr() % 16 == offset
+    kw = dict(stride=stride, bias=bias, factors=f, relu=True)
+    got = _sconv_once(off, packed, "mma_sync", **kw)
+    assert torch.equal(got, ops.sparse_conv2d_int8_plain(x, packed, **kw))
+    assert torch.equal(got, _sconv_once(x, packed, "wgmma_tma", **kw))
+    assert torch.equal(got, _sconv_dense(x, w, bias, f, stride, k, cuda))
+
+
+# Blocks the Hopper route does not take, on the mma_sync route: off the
+# 32-channel step, (block_c, block_o) = (16, 14) at the conv sweep's l3.c1
+# and l4.ds shapes at batch 2 (O not a multiple of 14, so the packer's
+# padded channels must never be stored), and (8, 4); on it but with
+# block_o % 8 != 0, (32, 12) and (64, 20) (whole 16-byte loads).
 @pytest.mark.parametrize("N,C,O,H,k,stride,block_c,block_o", [
     (2, 128, 256, 28, 3, 2, 16, 14), (2, 256, 512, 14, 1, 2, 16, 14),
-    (2, 24, 28, 9, 3, 1, 8, 4), (3, 16, 12, 7, 3, 2, 8, 4)])
+    (2, 24, 28, 9, 3, 1, 8, 4), (3, 16, 12, 7, 3, 2, 8, 4),
+    (2, 64, 36, 9, 3, 2, 32, 12), (2, 128, 40, 8, 3, 1, 64, 20)])
 def test_sparse_conv_block_shapes(cuda, N, C, O, H, k, stride, block_c,
                                   block_o):
     w, x, packed, bias, f = _sconv_case(cuda, N, C, O, H, k, stride,
                                         block_o, block_c, 0.6, C + O + H)
     kw = dict(stride=stride, bias=bias, factors=f, relu=True)
-    before = _kernels.launch_counts()["sparse_conv"]
-    got = ops.sparse_conv2d_int8(x, packed, **kw)
-    torch.cuda.synchronize()
-    assert _kernels.launch_counts()["sparse_conv"] == before + 1
+    got = _sconv_once(x, packed, "mma_sync", **kw)
     assert torch.equal(got, ops.sparse_conv2d_int8_plain(x, packed, **kw))
-    wd = ops.pack_weight(w.reshape(O, -1), C, k, cuda)
-    assert torch.equal(got, ops.conv2d_int8(
-        x, wd, bias, f, stride=stride, padding=k // 2, relu=True))
-    raw = ops.sparse_conv2d_int8(x, packed, stride=stride)
-    torch.cuda.synchronize()
+    assert torch.equal(got, _sconv_dense(x, w, bias, f, stride, k, cuda))
+    raw = _sconv_once(x, packed, "mma_sync", stride=stride)
     assert torch.equal(raw, ops.sparse_conv2d_int8_plain(x, packed,
                                                           stride=stride))
 
