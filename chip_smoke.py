@@ -2,7 +2,9 @@
 and ResNet-50 serving, block-sparse ResNet-18, the INT8 MNIST CNN, greedy
 generation on the INT8 block-sparse decoder LM, the zero-skip conv sweep,
 the int8-input stream, ResNet-18 on the space-to-depth stem, the
-block-sparse kernels at the reference's 14 x 14 blocks, and the probes.
+block-sparse kernels at the reference's 14 x 14 blocks, the probes, and
+the serving runtime: the native loader's stream, the per-layer profiles,
+live power and the typed errors.
 
     python3 chip_smoke.py
 
@@ -156,18 +158,45 @@ result line) without them.  Phases, each fatal on failure:
    (the 14 x 14 blocks' K offset) in a process of its own, which must fail
    with an illegal instruction: the reason K4's small-block path loads
    32-byte windows from 16-byte boundaries.
+24. The native stream: the host library built from ``native/src`` by
+   ``g++`` (a failed build fails the phase); 384 seeded uint8 ImageNet
+   images, served as three batches of 128 through ``stream`` over
+   ``native.BatchLoader`` (in order, ImageNet mean and std, the model's
+   ``s_input``, ``os.cpu_count()`` threads), counts reset just before:
+   K10, K2 and K3 must launch and K1 must not.  The logits must be
+   bit-identical to the ``QuantizingLoader`` stream of
+   ``preprocess_imagenet`` of the same images and to the plain path on
+   the card, the labels the images'.  Prints both loaders' img/s over 12
+   batches in the order QuantizingLoader, native, native, QuantizingLoader,
+   and ``run_inference``'s upload of a batch timed from pageable memory
+   and through a pinned buffer, in the order pageable, pinned, pinned,
+   pageable.
+25. ``InferenceEngine.profile`` (the CUDA-event forward over the roofline
+   rows) and ``xprof.profile_layers`` (device time by ``record_function``
+   scope) for ResNet-18 and ResNet-50 at batch 128: every row's scope and
+   ``pool`` must have device time, the scopes must sum to within 10 % of
+   the forward's CUDA-event median, and at most 5 % of it may reach no
+   scope (printed); then ``profile --batch 128`` and ``profile --measured
+   --depth 50 --batch 128`` as subprocesses.
+26. Power: ``power.PowerSampler`` over 2.5 s of back-to-back ResNet-18
+   forwards at batch 128 (``nvidia-smi``'s ``power.draw.instant``, or
+   ``power.draw``, and ``clocks.sm``): a ``PowerProfile`` with
+   ``modeled=False``, average and peak W, the SM clock and GOPS/W, beside
+   the idle reading taken before any load and the modeled estimate.
+27. The typed errors on the card: a 3-D input and ``n_batches=0`` raise
+   ``INVALID_CONFIG``, ``timeout_s=0`` raises ``TIMEOUT``.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the served paths; ms the kernel's time summed over the shapes of the
-paths walked: ResNet-18 and ResNet-50 for K1-K3, the sparse ResNet-18 for
-K4, ResNet-50 for K7, the four layers of one prompt's prefill for K5, the
-sweep's four cases for K8, the pooled and unpooled stem for K10, the
-batch-128 stem for K6; bound_ms the sum over the same calls of the larger
-of bytes / 3.35 TB/s and operations / the peak of their type, K5's at the
-3xTF32 rate it runs; library_ms the PyTorch call timed
-beside the kernel, summed the same way, or null); the last is
-``{"ok": true, "device": {...}}``.  Every time printed is labelled with
-the card's name and power limit.
+the served paths, phase 24's stream included; ms the kernel's time
+summed over the shapes of the paths walked: ResNet-18 and ResNet-50 for
+K1-K3, the sparse ResNet-18 for K4, ResNet-50 for K7, the four layers of
+one prompt's prefill for K5, the sweep's four cases for K8, the pooled
+and unpooled stem for K10, the batch-128 stem for K6; bound_ms the sum
+over the same calls of the larger of bytes / 3.35 TB/s and operations /
+the peak of their type, K5's at the 3xTF32 rate it runs; library_ms the
+PyTorch call timed beside the kernel, summed the same way, or null); the
+last is ``{"ok": true, "device": {...}}``.  Every time printed is
+labelled with the card's name and power limit.
 """
 
 import contextlib
@@ -419,9 +448,13 @@ def main() -> None:
         sparse_conv_plan,
         stem_conv_pool, stem_conv_pool_int8, stem_conv_pool_int8_plain,
         stem_conv_pool_plain, stem_s2d_weights)
-    from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
-                                                       QuantizingLoader,
-                                                       preprocess_mnist)
+    from resnet_accel_tpu_torch import native
+    from resnet_accel_tpu_torch.runtime import power, xprof
+    from resnet_accel_tpu_torch.runtime.engine import (
+        IMAGENET_MEAN, IMAGENET_STD, AccelErrorCode, AcceleratorError,
+        InferenceEngine, QuantizingLoader, preprocess_imagenet,
+        preprocess_mnist)
+    from resnet_accel_tpu_torch.runtime.profile import profile_resnet18
     from resnet_accel_tpu_torch.sparse import (device_pack, pack_conv_bsr,
                                                tap_sparse_weight)
 
@@ -435,6 +468,9 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t_start = time.perf_counter()
+    # before any load: the idle reading beside the power limit (phase 26)
+    telemetry = power.probe_live_telemetry(dev.index)
+    print(f"telemetry before any load: {telemetry}")
 
     # ---- 1. build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1849,10 +1885,197 @@ def main() -> None:
           f"{abl['full'] - abl['no_pool']:.4f} ms, staging alone "
           f"{abl['stage_only']:.4f} ms  ({label})")
 
+    # ---- 24. the native stream ---------------------------------------------
+    t0 = time.perf_counter()
+    try:
+        native.lib()
+    except (RuntimeError, OSError) as e:
+        fail(f"the native host library did not build: {e}")
+    print(f"native host library (g++, native/src): built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    u8 = np.random.default_rng(SEED + 24).integers(
+        0, 256, (3 * BATCH, HW, HW, 3), dtype=np.uint8)
+    chw = np.ascontiguousarray(u8.transpose(0, 3, 1, 2))
+    pre = preprocess_imagenet(u8)
+    u8_labels = np.arange(3 * BATCH, dtype=np.int32) % CLASSES
+    n_threads, depth = os.cpu_count(), 4
+
+    def native_loader(labels=None):
+        return native.BatchLoader(chw, labels, BATCH, IMAGENET_MEAN,
+                                  IMAGENET_STD, model.s_input, shuffle=False,
+                                  n_threads=n_threads, depth=depth)
+
+    neng = InferenceEngine(model, device="cuda")
+    with native_loader(u8_labels) as ld:
+        nres, nlaunches = served_launches(
+            _kernels, lambda: neng.stream(ld, 3),
+            ["stem_int8", "conv_int8", "matmul_int8"],
+            f"native int8 stream, 3 batches of {BATCH}",
+            {"matmul_int8": "wgmma_tma", "conv_int8": {"wgmma_tma": 19 * 3}})
+    if nlaunches["stem_fused"] != 0:
+        fail("the native int8 stream launched K1")
+    if not np.array_equal(nres.labels, u8_labels):
+        fail("the native stream's labels differ from the images' labels")
+    qres = neng.stream(QuantizingLoader(pre, model.s_input, BATCH), 3)
+    if not np.array_equal(nres.logits, qres.logits):
+        fail("the native stream's logits differ from the QuantizingLoader "
+             f"stream's (max |err| {np.abs(nres.logits - qres.logits).max()})")
+    with torch.inference_mode():
+        for b in range(3):
+            got = nres.logits[b * BATCH:(b + 1) * BATCH]
+            if got.shape != (BATCH, CLASSES) or not np.isfinite(got).all():
+                fail(f"native stream batch {b}: logits {got.shape} not "
+                     f"finite")
+            qb = quantize_input(torch.from_numpy(
+                pre[b * BATCH:(b + 1) * BATCH]).to(dev), model.s_input)
+            if not np.array_equal(got, mod.forward_plain(qb).cpu().numpy()):
+                fail(f"native stream batch {b}: logits differ from the plain "
+                     f"path")
+    print(f"native stream logits: 3 x [{BATCH}, {CLASSES}] finite, "
+          f"bit-identical to the QuantizingLoader stream of "
+          f"preprocess_imagenet and to the plain path on the card")
+    rates = []
+    for kind in ("Q", "N", "N", "Q"):
+        if kind == "Q":
+            r = neng.stream(QuantizingLoader(pre, model.s_input, BATCH), 12)
+        else:
+            with native_loader() as ld:
+                r = neng.stream(ld, 12)
+        rates.append(f"{kind} {r.images_per_s:.1f}")
+    print(f"int8 stream img/s over batches 2-12 (CUDA events), in the order "
+          f"QuantizingLoader (Q), native (N), N, Q: {', '.join(rates)}; "
+          f"os.cpu_count() {os.cpu_count()}, native n_threads {n_threads}, "
+          f"depth {depth}  ({label})")
+    staging = torch.empty((BATCH, 3, HW, HW), dtype=torch.float32,
+                          pin_memory=True)
+
+    def upload_ms(fn):
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def pageable():
+        return torch.from_numpy(batches[0]).to(dev)
+
+    def pinned():
+        staging.copy_(torch.from_numpy(batches[0]))
+        return staging.to(dev, non_blocking=True)
+    pageable(), pinned()
+    up = [upload_ms(f) for f in (pageable, pinned, pinned, pageable)]
+    served = [round(neng.run_inference(xb).images_per_s, 1)
+              for xb in batches]
+    print(f"run_inference upload of [{BATCH}, 3, {HW}, {HW}] fp32 (host "
+          f"clock to a synchronize, median of 10), in the order pageable, "
+          f"pinned, pinned, pageable: {up[0]:.3f}, {up[1]:.3f}, {up[2]:.3f}, "
+          f"{up[3]:.3f} ms (the engine stages through pinned memory); "
+          f"run_inference {served} img/s  ({label})")
+    del neng, staging
+
+    # ---- 25. profile and profile --measured --------------------------------
+    for depth_, m in ((18, model), (50, model50)):
+        peng = InferenceEngine(m, device="cuda")
+        table = peng.profile(batches[0], iters=10)
+        fwd_s = peng.profiler.summary()["total_latency_s"]
+        print(f"ResNet-{depth_} profile, batch {BATCH}: the forward's "
+              f"{fwd_s * 1e3:.4f} ms (CUDA events, median of 10) over the "
+              f"roofline rows  ({label})\n{table}")
+        rows = profile_resnet18(m, batch=BATCH).records
+        agg, _ = xprof.profile_layers(peng.module, x0)
+        print(f"ResNet-{depth_} profile --measured, batch {BATCH}: device "
+              f"time by scope (torch.profiler), roofline bound beside "
+              f"({label})\n"
+              + xprof.layer_table(agg, {r.name: r.latency_s for r in rows}))
+        for name in [r.name for r in rows] + ["pool"]:
+            if not agg.get(name, 0.0) > 0:
+                fail(f"ResNet-{depth_}: scope {name} has no device time")
+        unattr = agg.get(xprof.UNATTRIBUTED, 0.0)
+        scoped = sum(agg.values()) - unattr
+        print(f"ResNet-{depth_}: scopes sum {scoped * 1e3:.4f} ms, "
+              f"{100 * scoped / fwd_s:.1f} % of the forward's "
+              f"{fwd_s * 1e3:.4f} ms; unattributed device time "
+              f"{unattr * 1e3:.4f} ms  ({label})")
+        if abs(scoped - fwd_s) > 0.10 * fwd_s:
+            fail(f"ResNet-{depth_}: the scopes sum to {scoped * 1e3:.4f} ms, "
+                 f"not within 10 % of the forward's {fwd_s * 1e3:.4f}")
+        if unattr > 0.05 * fwd_s:
+            fail(f"ResNet-{depth_}: {unattr * 1e3:.4f} ms of device time "
+                 f"reached no scope")
+        del peng
+    for args in (["--batch", "128"],
+                 ["--measured", "--depth", "50", "--batch", "128"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "resnet_accel_tpu_torch", "profile",
+             *args, "--device", "cuda"], cwd=repo, capture_output=True,
+            text=True, timeout=600)
+        print(proc.stdout, end="")
+        print(f"profile {' '.join(args)}: {time.perf_counter() - t0:.1f} s"
+              f"  ({label})")
+        if proc.returncode != 0 or "TOTAL" not in proc.stdout:
+            print(proc.stderr, file=sys.stderr)
+            fail(f"CLI profile {' '.join(args)} exited {proc.returncode}")
+
+    # ---- 26. power ---------------------------------------------------------
+    fwd_ops = sum(r.total_ops for r in profile_resnet18(
+        model, batch=BATCH).records)
+    with torch.inference_mode():
+        mod(x0)
+        torch.cuda.synchronize()
+        n_fwd = 0
+        with power.PowerSampler(dev.index) as ps:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 2.5:
+                for _ in range(20):
+                    mod(x0)
+                n_fwd += 20
+            torch.cuda.synchronize()
+    live = ps.profile(f"ResNet-18 forward x {n_fwd}, batch {BATCH}",
+                      total_ops=fwd_ops * n_fwd)
+    if live.modeled or len(ps.watts) < 2:
+        fail(f"no live power profile ({len(ps.watts)} samples)")
+    smi = telemetry["nvidia_smi"]
+    util = fwd_ops * n_fwd / live.duration_s / 1979e12
+    modeled = power.estimate_power("modeled", live.duration_s,
+                                   fwd_ops * n_fwd, util, smi["power_limit_w"],
+                                   smi["idle_w"])
+    print(f"power: {live.report()}; {len(ps.watts)} samples of {ps.field} "
+          f"over {live.duration_s:.2f} s, average {live.avg_w:.2f} W, peak "
+          f"{live.peak_w:.2f} W, SM clock {ps.avg_sm_mhz:.0f} MHz average "
+          f"({min(ps.sm_mhz):.0f}-{max(ps.sm_mhz):.0f}), "
+          f"{live.gops_per_w:.1f} GOPS/W; idle before any load "
+          f"{smi['idle_w']:.2f} W; modeled at {100 * util:.1f} % of the int8 "
+          f"peak: {modeled.avg_w:.1f} W  ({label})")
+
+    # ---- 27. the typed errors ----------------------------------------------
+    eeng = InferenceEngine(model, device="cuda")
+    teng = InferenceEngine(model, device="cuda", timeout_s=0.0)
+    for what, call, code in (
+            ("a 3-D input", lambda: eeng.run_inference(batches[0][0]),
+             AccelErrorCode.INVALID_CONFIG),
+            ("n_batches=0", lambda: eeng.stream(
+                QuantizingLoader(pre, model.s_input, BATCH), 0),
+             AccelErrorCode.INVALID_CONFIG),
+            ("timeout_s=0", lambda: teng.run_inference(batches[0]),
+             AccelErrorCode.TIMEOUT)):
+        try:
+            call()
+        except AcceleratorError as e:
+            if e.code != code:
+                fail(f"{what}: {e.code}, not {code}")
+            print(f"typed error on the card, {what}: {e}")
+        else:
+            fail(f"{what}: no AcceleratorError")
+    del eeng, teng
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
              + qlaunches[name] + rlaunches[name] + m14launches[name]
-             + s14launches[name] + s128launches[name]
+             + s14launches[name] + s128launches[name] + nlaunches[name]
              for name in _kernels.KERNELS}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = []

@@ -14,7 +14,12 @@ the JAX package.
 - ``models``   -- ResNet-18: fp32 init, quantization, block pruning and
                   ``attach_bsr``, the ``.npz`` model container and the
                   forward module; the MNIST CNN.
-- ``runtime``  -- the device seam and the inference engine.
+- ``runtime``  -- the device seam, the inference engine (with its typed
+                  errors), the performance metrics and chained timing,
+                  the per-layer roofline and measured profiles, and power.
+- ``native``   -- ctypes binding of the repo's native host library
+                  (``native/``, built by g++ at first use): goldens, the
+                  BSR packer and the threaded int8 ``BatchLoader``.
 - ``quant``    -- per-channel int8 weight quantization (numpy).
 - ``_kernels`` -- builds ``csrc/*.cu`` with nvcc at first CUDA use and
                   launches the kernels through ctypes.

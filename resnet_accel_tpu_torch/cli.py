@@ -5,6 +5,10 @@
     bench     dense-vs-sparse GEMM sweep through the zero-skip kernel, or
               with --conv the zero-skip conv against the dense conv
     generate  greedy decoding on the INT8 block-sparse decoder LM
+    profile   per-layer table of a ResNet of the family: the measured
+              forward over the layers' roofline times, or with --measured
+              each layer's device time from a torch.profiler trace beside
+              its roofline bound
 
 Every subcommand runs on the card unless ``--device cpu`` asks for the CPU.
 
@@ -16,6 +20,7 @@ Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
        python -m resnet_accel_tpu_torch bench
        python -m resnet_accel_tpu_torch bench --conv
        python -m resnet_accel_tpu_torch generate --flash --prompt 1,2,3
+       python -m resnet_accel_tpu_torch profile --measured --batch 128
 """
 
 from __future__ import annotations
@@ -257,6 +262,43 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_profile(args) -> int:
+    """Per-layer profile of a seed-0 INT8 ResNet (``--depth``), calibrated
+    on two seeded images: the roofline table with the measured forward
+    distributed over it, or with ``--measured`` each layer's measured time
+    (device time on a card; ``runtime.xprof``) beside its roofline bound
+    (``runtime.profile``)."""
+    import torch
+    from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
+                                                      quantize_resnet)
+    from resnet_accel_tpu_torch.runtime import xprof
+    from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
+    from resnet_accel_tpu_torch.runtime.profile import profile_resnet18
+
+    rng = np.random.default_rng(0)
+    hw = 32 if args.small_input else 224
+    fp32 = init_resnet_fp32(args.depth, seed=0, num_classes=args.num_classes,
+                            small_input=args.small_input)
+    calib = rng.normal(0, 1, (2, 3, hw, hw)).astype(np.float32)
+    model = quantize_resnet(fp32, calib, args.depth, args.num_classes,
+                            small_input=args.small_input)
+    eng = InferenceEngine(model, device=args.device)
+    x = rng.normal(0, 1, (args.batch, 3, hw, hw)).astype(np.float32)
+    label = device_label(eng.device)
+    if args.measured:
+        xt = torch.from_numpy(x).to(eng.device)
+        agg, _ = xprof.profile_layers(eng.module, xt)
+        bounds = {r.name: r.latency_s for r in profile_resnet18(
+            model, input_hw=hw, batch=args.batch).records}
+        print(xprof.layer_table(agg, bounds))
+    else:
+        print(eng.profile(x, iters=args.iters))
+    print(f"ResNet-{args.depth}, batch {args.batch}, {hw}x{hw}, "
+          f"{'device' if eng.device.type == 'cuda' else 'host'} time on "
+          f"{label}; bounds on the H100's published peaks")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m resnet_accel_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -314,6 +356,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="flash-attention prefill (kernel K5)")
     pg.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pg.set_defaults(fn=cmd_generate)
+
+    pp = sub.add_parser("profile", help="per-layer profile of a ResNet")
+    pp.add_argument("--depth", type=int, default=18,
+                    choices=[18, 34, 50, 101, 152])
+    pp.add_argument("--measured", action="store_true",
+                    help="each layer's measured time from a torch.profiler "
+                         "trace (device time on a card) beside its "
+                         "roofline bound")
+    pp.add_argument("--batch", type=int, default=32)
+    pp.add_argument("--num-classes", type=int, default=1000)
+    pp.add_argument("--small-input", action="store_true",
+                    help="CIFAR geometry: 3x3 stem, no max pool")
+    pp.add_argument("--iters", type=int, default=3)
+    pp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pp.set_defaults(fn=cmd_profile)
     return ap
 
 

@@ -45,7 +45,11 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
   On CUDA tensors every step above marked K runs its hand-written kernel;
   on CPU tensors the plain PyTorch versions run.  ``forward_plain`` runs
   the plain versions on any device, the reference the kernels are checked
-  against on the card.
+  against on the card.  While a ``torch.profiler`` records, each layer
+  runs in a ``record_function`` scope named after its row of
+  ``runtime.profile.profile_resnet18`` (``stem``, ``b{i}.c1``,
+  ``b{i}.c2`` with a basic block's join, ``b{i}.c3`` with a bottleneck's,
+  ``b{i}.ds``, ``fc``) or ``pool``.
 
 The numerical specification is the numpy golden ``forward_golden`` of the
 JAX package's module.
@@ -53,6 +57,7 @@ JAX package's module.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -653,6 +658,19 @@ def prune_params_blockwise(
 # Forward
 # ==========================================================================
 
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def _scope(name: str):
+    """A ``torch.profiler`` scope named ``name`` (the rows of
+    ``runtime.profile.profile_resnet18``, and ``pool``) while a profiler
+    records, so that ``runtime.xprof`` can attribute each kernel's device
+    time to its layer; no scope otherwise, so serving pays nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE
+
+
 class Int8Conv(nn.Module):
     """One quantized conv's tensors on the device, with its geometry.
 
@@ -786,32 +804,45 @@ class ResNet18Int8Module(nn.Module):
         int8_in = x.dtype == torch.int8
         st = self.stem
         cl = torch.channels_last
-        if self.small_input:
-            a = x if int8_in else quantize_input(x, self.s_input)
-            a = F.pad(a, (0, 0, 0, 0, 0, 1))
-            a = st(a.contiguous(memory_format=cl), conv)
-        elif self.stem_s2d_w is not None and x.shape[-2] % 2 == 0 \
-                and x.shape[-1] % 2 == 0:
-            a = (space_to_depth_nchw(x).contiguous(memory_format=cl)
-                 if int8_in else quant_s2d(x, self.s_input))
-            a = conv(a, self.stem_s2d_w, st.bias, st.factors, stride=1,
-                     padding=((2, 1), (2, 1)), relu=st.relu)
-            a = maxpool2d_int8(a, 3, 2, padding=1).contiguous(
-                memory_format=cl)
-        elif int8_in:
-            a = stem_int8(x, self.stem_k1_w, st.bias, st.factors)
-        else:
-            a = stem(x, self.stem_k1_w, st.bias, st.factors, self.s_input)
-        for convs, rs, inv in zip(self.blocks, self.res_scales,
-                                  self.inv_out):
-            y = convs["c1"](a, conv, bsr)
-            r = convs["ds"](a, conv, bsr) if "ds" in convs else a
-            if "c3" in convs:  # a bottleneck: c2, then c3 with the join
-                y = convs["c2"](y, conv, bsr)
-                a = convs["c3"](y, conv, bsr, residual=r, res_scales=rs,
-                                expand=expand, inv_out=inv)
+        with _scope("stem"):
+            if self.small_input:
+                a = x if int8_in else quantize_input(x, self.s_input)
+                a = F.pad(a, (0, 0, 0, 0, 0, 1))
+                a = st(a.contiguous(memory_format=cl), conv)
+            elif self.stem_s2d_w is not None and x.shape[-2] % 2 == 0 \
+                    and x.shape[-1] % 2 == 0:
+                a = (space_to_depth_nchw(x).contiguous(memory_format=cl)
+                     if int8_in else quant_s2d(x, self.s_input))
+                a = conv(a, self.stem_s2d_w, st.bias, st.factors, stride=1,
+                         padding=((2, 1), (2, 1)), relu=st.relu)
+                a = maxpool2d_int8(a, 3, 2, padding=1).contiguous(
+                    memory_format=cl)
+            elif int8_in:
+                a = stem_int8(x, self.stem_k1_w, st.bias, st.factors)
             else:
-                a = convs["c2"](y, conv, bsr, residual=r, res_scales=rs)
-        a = avgpool_global_int8(a)
-        acc = matmul(a, self.fc_w, bias=self.fc_b)
-        return acc.to(torch.float32) * self.fc_deq
+                a = stem(x, self.stem_k1_w, st.bias, st.factors,
+                         self.s_input)
+        for i, (convs, rs, inv) in enumerate(zip(self.blocks,
+                                                 self.res_scales,
+                                                 self.inv_out)):
+            with _scope(f"b{i}.c1"):
+                y = convs["c1"](a, conv, bsr)
+            r = a
+            if "ds" in convs:
+                with _scope(f"b{i}.ds"):
+                    r = convs["ds"](a, conv, bsr)
+            if "c3" in convs:  # a bottleneck: c2, then c3 with the join
+                with _scope(f"b{i}.c2"):
+                    y = convs["c2"](y, conv, bsr)
+                with _scope(f"b{i}.c3"):
+                    a = convs["c3"](y, conv, bsr, residual=r, res_scales=rs,
+                                    expand=expand, inv_out=inv)
+            else:
+                with _scope(f"b{i}.c2"):
+                    a = convs["c2"](y, conv, bsr, residual=r,
+                                    res_scales=rs)
+        with _scope("pool"):
+            a = avgpool_global_int8(a)
+        with _scope("fc"):
+            acc = matmul(a, self.fc_w, bias=self.fc_b)
+            return acc.to(torch.float32) * self.fc_deq

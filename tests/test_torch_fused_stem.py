@@ -22,7 +22,9 @@ from resnet_accel_tpu_torch.ops import (fused_stem_pool, quantize_input,
                                         stem_conv_pool_int8,
                                         stem_conv_pool_int8_plain,
                                         stem_conv_pool_plain)
-from resnet_accel_tpu_torch.runtime.engine import (InferenceEngine,
+from resnet_accel_tpu_torch.runtime.engine import (AccelErrorCode,
+                                                   AcceleratorError,
+                                                   InferenceEngine,
                                                    QuantizingLoader)
 
 torch.set_num_threads(2)
@@ -138,8 +140,9 @@ def test_stream_refuses(models):
     _, port, x = models
     eng = InferenceEngine(port, device="cpu")
     loader = QuantizingLoader(x, port.s_input, 2)
-    with pytest.raises(ValueError, match="n_batches"):
+    with pytest.raises(AcceleratorError, match="n_batches") as ei:
         eng.stream(loader, 0)
+    assert ei.value.code == AccelErrorCode.INVALID_CONFIG
 
     class Fp32Loader:
         has_labels = False
