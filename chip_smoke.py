@@ -2,9 +2,11 @@
 and ResNet-50 serving, block-sparse ResNet-18, the INT8 MNIST CNN, greedy
 generation on the INT8 block-sparse decoder LM, the zero-skip conv sweep,
 the int8-input stream, ResNet-18 on the space-to-depth stem, the
-block-sparse kernels at the reference's 14 x 14 blocks, the probes, and
-the serving runtime: the native loader's stream, the per-layer profiles,
-live power and the typed errors.
+block-sparse kernels at the reference's 14 x 14 blocks, the probes, the
+serving runtime (the native loader's stream, the per-layer profiles, live
+power and the typed errors), and the artifact flow: quantize, export, sim,
+verify, ``bench --artifact``, the fixture tree, sparse attention and the
+gather pack on the card.
 
     python3 chip_smoke.py
 
@@ -185,9 +187,29 @@ result line) without them.  Phases, each fatal on failure:
    the idle reading taken before any load and the modeled estimate.
 27. The typed errors on the card: a 3-D input and ``n_batches=0`` raise
    ``INVALID_CONFIG``, ``timeout_s=0`` raises ``TIMEOUT``.
+28. The artifact flow, the CLI as subprocesses: ``quantize`` of a seeded
+   fp32 MNIST checkpoint (the JAX names and shapes, nonzero biases), then
+   ``infer --model mnist`` on it (its classes the engine's; the engine's
+   logits, counts reset just before, bit-identical to the plain path);
+   the quantized fc1 [128, 9216] with 14 x 14 blocks zeroed at 0.9,
+   ``export``-ed and ``sim``-ulated; K4 on the layer regrouped to 128 x
+   128 (``wgmma_tma``) with ``sim``'s activation, saved and passed by
+   ``verify``, which must fail a copy with one value flipped; ``bench
+   --artifact --chain 256`` in this process at M 1 and 128, and on the
+   unpruned fc1 (6,590 blocks of 14 x 14, the reference's FC1 count) at M
+   1 (counts reset just before: K4 on ``wgmma_tma`` only,
+   ``bit_exact``), each beside K4 against its plain version, its bound
+   and ``_int_mm`` (M padded to 32);
+   ``fixtures --seed 42``, then ``SparseAttentionInt8`` of
+   ``transformer/80pct`` and ``90pct`` at T 8 and 640 on the card against
+   ``forward_golden`` and the CPU (rtol 2e-4, atol 2e-5); the gather pack
+   on the card (the 2048 GEMM's weight at 0.7 with 128 x 128 blocks, the
+   14 x 14 fc1), its product equal to the host pack's, a too-small
+   ``lmax`` raising.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the served paths, phase 24's stream included; ms the kernel's time
+the served paths, phase 24's stream and phase 28's ``bench --artifact``
+included, its CUDA graphs' replays counted by hand; ms the kernel's time
 summed over the shapes of the paths walked: ResNet-18 and ResNet-50 for
 K1-K3, the sparse ResNet-18 for K4, ResNet-50 for K7, the four layers of
 one prompt's prefill for K5, the sweep's four cases for K8, the pooled
@@ -294,19 +316,24 @@ def sconv_work(x, pk, stride, out):
 #: Clock cycles the card spins (about 2.5 ms) before each timed run, so
 #: that the host has queued the whole run before its start event fires.
 SPIN_CYCLES = 5_000_000
+#: The spin before a whole forward (about 20 ms): a ResNet-50 forward's
+#: launches alone can take the host longer than ``SPIN_CYCLES`` when the
+#: host's cores are shared.
+FORWARD_SPIN_CYCLES = 40_000_000
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, spin: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn`` over ``iters`` runs, after one warm-up:
-    CUDA events around each run, recorded behind a spin of the card, so
-    the host's time to launch ``fn`` is not counted."""
+    CUDA events around each run, recorded behind a spin of the card of
+    ``spin`` clock cycles, so the host's time to launch ``fn`` is not
+    counted."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -1995,13 +2022,26 @@ def main() -> None:
                 fail(f"ResNet-{depth_}: scope {name} has no device time")
         unattr = agg.get(xprof.UNATTRIBUTED, 0.0)
         scoped = sum(agg.values()) - unattr
+        # The scopes hold device time of a forward the host had queued
+        # ahead of the card (``capture``'s lead spins); the profile's
+        # forward is paced by the host's launches.  Held against the
+        # forward timed the scopes' way, behind a spin.
+        with torch.inference_mode():
+            dev_s = time_ms(lambda: peng.module(x0), 10,
+                            spin=FORWARD_SPIN_CYCLES) / 1e3
         print(f"ResNet-{depth_}: scopes sum {scoped * 1e3:.4f} ms, "
-              f"{100 * scoped / fwd_s:.1f} % of the forward's "
-              f"{fwd_s * 1e3:.4f} ms; unattributed device time "
-              f"{unattr * 1e3:.4f} ms  ({label})")
-        if abs(scoped - fwd_s) > 0.10 * fwd_s:
+              f"{100 * scoped / dev_s:.1f} % of the forward's device time "
+              f"{dev_s * 1e3:.4f} ms (CUDA events behind a spin, median of "
+              f"10); the host-paced forward {fwd_s * 1e3:.4f} ms, the card "
+              f"idle {100 * max(0.0, 1 - dev_s / fwd_s):.1f} % of it; "
+              f"unattributed device time {unattr * 1e3:.4f} ms  ({label})")
+        if abs(scoped - dev_s) > 0.10 * dev_s:
             fail(f"ResNet-{depth_}: the scopes sum to {scoped * 1e3:.4f} ms, "
-                 f"not within 10 % of the forward's {fwd_s * 1e3:.4f}")
+                 f"not within 10 % of the forward's device time "
+                 f"{dev_s * 1e3:.4f}")
+        if scoped > 1.10 * fwd_s:
+            fail(f"ResNet-{depth_}: the scopes sum to {scoped * 1e3:.4f} ms, "
+                 f"over the host-paced forward's {fwd_s * 1e3:.4f}")
         if unattr > 0.05 * fwd_s:
             fail(f"ResNet-{depth_}: {unattr * 1e3:.4f} ms of device time "
                  f"reached no scope")
@@ -2072,11 +2112,222 @@ def main() -> None:
             fail(f"{what}: no AcceleratorError")
     del eeng, teng
 
+    # ---- 28. the artifact flow -----------------------------------------------
+    from resnet_accel_tpu_torch.models.attention import SparseAttentionInt8
+    from resnet_accel_tpu_torch.ops import (bsr_matmul_wt_xla,
+                                            device_pack_gather,
+                                            pack_gather_bsr)
+    from resnet_accel_tpu_torch.sparse import (build_bsr_int8_direct,
+                                               load_layer_dir, regroup_bsr)
+    t28 = time.perf_counter()
+    art = tempfile.TemporaryDirectory()
+
+    def at(name):
+        return os.path.join(art.name, name)
+
+    def run_cli(*args, rc=0):
+        proc = subprocess.run(
+            [sys.executable, "-m", "resnet_accel_tpu_torch", *args],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        print(proc.stdout, end="")
+        if proc.returncode != rc:
+            print(proc.stderr, file=sys.stderr)
+            fail(f"CLI {args[0]} exited {proc.returncode}, not {rc}")
+        return proc.stdout
+
+    # 28.1 quantize a seeded fp32 checkpoint, serve it
+    ck_rng = np.random.default_rng(SEED + 28)
+    ck = {}
+    for layer, shape in MNIST_SHAPES.items():
+        fan_in = int(np.prod(shape[1:]))
+        ck[f"{layer}.weight"] = ck_rng.normal(
+            0, np.sqrt(2.0 / fan_in), shape).astype(np.float32)
+        ck[f"{layer}.bias"] = ck_rng.normal(0, 0.05, shape[0]).astype(
+            np.float32)
+    np.savez(at("ck.npz"), **ck)
+    np.save(at("digits.npy"), digits)
+    run_cli("quantize", "--checkpoint", at("ck.npz"), "--output", at("q"))
+    printed = run_cli("infer", "--model", "mnist", "--weights", at("q"),
+                      "--input", at("digits.npy"), "--device", "cuda",
+                      "--limit", "8")
+    qeng = InferenceEngine(MNISTCNNInt8.from_int8_dir(at("q"), digits),
+                           device="cuda")
+    qres, alaunches = served_launches(
+        _kernels, lambda: qeng.run_inference(xm),
+        ["conv_int8", "matmul_int8"],
+        f"the quantized MNIST checkpoint, a batch of {BATCH}",
+        {"matmul_int8": "wgmma_tma",
+         "conv_int8": {"mma_sync": 1, "wgmma_tma": 1}})
+    with torch.inference_mode():
+        plain = qeng.module.forward_plain(
+            torch.from_numpy(xm).to(dev)).cpu().numpy()
+    classes = [int(line.split("class ")[1].split()[0])
+               for line in printed.splitlines()
+               if line.startswith("sample ")]
+    if not np.array_equal(qres.logits, plain):
+        fail("the quantized checkpoint's logits differ from the plain path")
+    if classes != qres.predictions[:8].tolist():
+        fail(f"infer printed classes {classes}, the engine "
+             f"{qres.predictions[:8].tolist()}")
+    print(f"quantize -> infer: logits [{BATCH}, 10] bit-identical to the "
+          f"plain path on the card; the CLI's 8 classes the engine's")
+
+    # 28.2 export the quantized fc1 pruned at 14 x 14, simulate it
+    w8 = np.load(at("q/fc1_weight_int8.npy"))
+    keep = ck_rng.random((-(-w8.shape[0] // 14), -(-w8.shape[1] // 14))) \
+        >= MNIST_FC1_SPARSITY
+    np.save(at("fc1_14.npy"),
+            w8 * np.repeat(np.repeat(keep, 14, 0), 14, 1)[:w8.shape[0],
+                                                          :w8.shape[1]])
+    run_cli("export", "--weights", at("fc1_14.npy"), "--output", at("fc1"),
+            "--name", "fc1", "--block-h", "14", "--block-w", "14")
+    run_cli("sim", "--artifact", at("fc1"), "--output", at("g.npy"))
+
+    # 28.3 K4 on the regrouped layer against sim, through verify
+    bsr14 = load_layer_dir(at("fc1"))
+    pk = pack_bsr(regroup_bsr(bsr14), dev)
+    K, N = bsr14.shape[1], bsr14.shape[0]
+    golden_out = np.load(at("g.npy"))
+    with torch.inference_mode():
+        a_sim = torch.from_numpy(
+            ((np.arange(bsr14.padded_shape[1]) % 256) - 128).astype(
+                np.int8)[None, :K]).to(dev)
+        before = dict(_kernels.KERNELS["bsr_matmul"].variants)
+        k4_out = np.zeros_like(golden_out)       # the padded N's rows: 0
+        k4_out[:, :N] = bsr_matmul_wt(a_sim, pk).cpu().numpy()
+        paths_since(_kernels, "bsr_matmul", before, "wgmma_tma",
+                    "K4 on the exported fc1 regrouped to 128 x 128")
+    np.save(at("k4.npy"), k4_out)
+    if "PASS" not in run_cli("verify", "--golden", at("g.npy"), "--actual",
+                             at("k4.npy")):
+        fail("verify did not PASS K4 against sim")
+    k4_out[0, 5] ^= 1
+    np.save(at("k4_bad.npy"), k4_out)
+    if "FAIL: 1 mismatches" not in run_cli(
+            "verify", "--golden", at("g.npy"), "--actual", at("k4_bad.npy"),
+            rc=1):
+        fail("verify did not FAIL the corrupted copy")
+
+    # 28.4 bench --artifact at M = 1 and 128, K4 through CUDA graphs; the
+    # unpruned fc1 too, exported at 14 x 14 (6,590 blocks, the count of the
+    # reference's own FC1 artifact)
+    run_cli("export", "--weights", at("q/fc1_weight_int8.npy"), "--output",
+            at("fc1_dense"), "--name", "fc1", "--block-h", "14",
+            "--block-w", "14")
+    art_k4 = 0          # K4 launches run by bench --artifact, replays too
+    for what, layer_dir, M_ in (("fc1 at 0.9", at("fc1"), 1),
+                                ("fc1 at 0.9", at("fc1"), BATCH),
+                                ("fc1 unpruned", at("fc1_dense"), 1)):
+        case = f"{what}, M {M_}"
+        argv = ["bench", "--artifact", layer_dir, "--chain", "256",
+                "--device", "cuda", "--batch", str(M_)]
+        buf = io.StringIO()
+        _kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        counts = _kernels.launch_counts()
+        variants = _kernels.variant_counts()
+        row = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"bench --artifact, {case}: {json.dumps(row)}; launch "
+              f"counts (captures counted once): {counts}; variants: "
+              f"{variants}  ({label})")
+        if rc != 0 or not row["bit_exact"]:
+            fail(f"bench --artifact, {case}: rc {rc}, bit_exact "
+                 f"{row['bit_exact']}")
+        if (counts["bsr_matmul"] != 2 + 256
+                or set(variants.get("bsr_matmul", {})) != {"wgmma_tma"}):
+            fail(f"bench --artifact, {case}: K4 took {variants}, "
+                 f"{counts['bsr_matmul']} launches counted, not 258")
+        art_k4 += row["launches"]
+        pk_art = pack_bsr(regroup_bsr(load_layer_dir(layer_dir)), dev)
+        with torch.inference_mode():
+            am = torch.from_numpy(((np.arange(K)[None, :]
+                                    + np.arange(M_)[:, None]) % 256
+                                   - 128).astype(np.int8)).to(dev)
+            a_lib = torch.zeros((max(M_, 32), K), dtype=torch.int8,
+                                device=dev)
+            a_lib[:M_] = am
+            check("bsr_matmul", f"art{M_}",
+                  lambda: bsr_matmul_wt(am, pk_art),
+                  lambda: bsr_matmul_wt_plain(am, pk_art),
+                  f"A{list(am.shape)} N{pk_art.n_out} {pk_art.nnz_source}/"
+                  f"{pk_art.total_source} blocks ({what}, regrouped)",
+                  lambda out: bsr_work(am, pk_art, out),
+                  library=int_mm_call(a_lib, densify(pk_art)), timed=False,
+                  plan=bsr_plan(am, pk_art, n_sms))
+        lms = last_check["library_ms"]
+        print(f"bench --artifact, {case}: {row['latency_us']:.4f} us a "
+              f"call in a CUDA graph of 256 against K4 alone "
+              f"{last_check['ms'] * 1e3:.4f} us, plain "
+              f"{last_check['plain_ms'] * 1e3:.4f} us, bound "
+              f"{last_check['bound_ms'] * 1e3:.4f} us, _int_mm at M "
+              f"{max(M_, 32)} "
+              + ("refused" if lms is None else f"{lms * 1e3:.4f} us")
+              + f"; {row['gops']:.3f} GOPS over the layer's "
+              f"{row['nnz_blocks']} 14 x 14 blocks  ({label})")
+
+    # 28.5 the fixture tree, sparse attention on the card
+    run_cli("fixtures", "--output", at("fx"), "--seed", "42")
+    att_rng = np.random.default_rng(SEED + 30)
+    for sp in ("80pct", "90pct"):
+        root = at(f"fx/transformer/{sp}")
+        att = SparseAttentionInt8.from_fixture_root(root, device="cuda")
+        att_cpu = SparseAttentionInt8.from_fixture_root(root, device="cpu")
+        for T in (8, 640):
+            xa = att_rng.normal(0, 1, (T, att.q.d_in)).astype(np.float32)
+            with torch.inference_mode():
+                got = att(xa).cpu().numpy()
+                cpu = att_cpu(xa).numpy()
+            gold = att.forward_golden(xa)
+            ok = (got.shape == (T, att.q.d_out) and np.isfinite(got).all()
+                  and np.allclose(got, gold, rtol=2e-4, atol=2e-5)
+                  and np.allclose(got, cpu, rtol=2e-4, atol=2e-5))
+            print(f"SparseAttentionInt8 {sp} T {T}: {got.shape}, max |card "
+                  f"- golden| {np.abs(got - gold).max():.3g}, max |card - "
+                  f"cpu| {np.abs(got - cpu).max():.3g}, within rtol 2e-4 "
+                  f"atol 2e-5: {ok}; sparsity {att.sparsity_report()}")
+            if not ok:
+                fail(f"SparseAttentionInt8 {sp} at T {T} off the golden "
+                     f"or the CPU")
+
+    # 28.6 the gather pack on the card against the host pack
+    g_rng = np.random.default_rng(SEED + 31)
+    W2k = g_rng.integers(-128, 128, (2048, 2048)).astype(np.int8)
+    W2k *= np.repeat(np.repeat(g_rng.random((16, 16)) >= SPARSITY, 128, 0),
+                     128, 1).astype(np.int8)
+    with torch.inference_mode():
+        for name, wn, blk, an in (
+                ("2048 GEMM, 128 x 128 at 0.7", W2k, 128,
+                 g_rng.integers(-128, 128, (512, 2048)).astype(np.int8)),
+                ("fc1, 14 x 14 at 0.9", np.load(at("fc1_14.npy")), 14,
+                 g_rng.integers(-128, 128, (BATCH, K)).astype(np.int8))):
+            wt = torch.from_numpy(wn).to(dev)
+            at_ = torch.from_numpy(an).to(dev)
+            host = build_bsr_int8_direct(wn, blk)
+            gd = device_pack_gather(wt, blk)
+            got = bsr_matmul_wt_xla(at_, gd)
+            want = bsr_matmul_wt_xla(at_, pack_gather_bsr(host, dev))
+            if not torch.equal(got, want):
+                fail(f"device_pack_gather {name}: != the host pack")
+            most = int(np.diff(host.row_ptr).max())
+            try:
+                device_pack_gather(wt, blk, lmax=most - 1)
+            except ValueError as e:
+                print(f"device_pack_gather {name}: product equal to the "
+                      f"host pack's, lmax {gd.lmax}; lmax {most - 1} "
+                      f"raises: {e}")
+            else:
+                fail(f"device_pack_gather {name}: lmax {most - 1} < {most} "
+                     f"did not raise")
+    art.cleanup()
+    print(f"phase 28 (the artifact flow): {time.perf_counter() - t28:.1f} s")
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
              + qlaunches[name] + rlaunches[name] + m14launches[name]
              + s14launches[name] + s128launches[name] + nlaunches[name]
-             for name in _kernels.KERNELS}
+             + alaunches[name] for name in _kernels.KERNELS}
+    total["bsr_matmul"] += art_k4
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, k in _kernels.KERNELS.items():

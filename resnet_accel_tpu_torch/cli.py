@@ -2,15 +2,30 @@
 
     infer     run INT8 inference (a ResNet of the family -- 18, 34, 50,
               101 or 152 -- or the MNIST CNN) on an .npy array of images
-    bench     dense-vs-sparse GEMM sweep through the zero-skip kernel, or
-              with --conv the zero-skip conv against the dense conv
+    test      run the port's own tests (tests/test_torch_*.py)
+    bench     dense-vs-sparse GEMM sweep through the zero-skip kernel, with
+              --conv the zero-skip conv against the dense conv, or with
+              --artifact DIR one exported BSR layer's batch-1 matvec
+    quantize  FP32 checkpoint (.npz) -> per-channel INT8 arrays
+    export    a weight .npy -> a BSR layer directory
+    sim       the golden model on a BSR layer directory (no card)
+    verify    element-wise comparison of two .npy outputs (tolerance 0)
+    fixtures  write the synthetic sparse fixture tree
     generate  greedy decoding on the INT8 block-sparse decoder LM
     profile   per-layer table of a ResNet of the family: the measured
               forward over the layers' roofline times, or with --measured
               each layer's device time from a torch.profiler trace beside
               its roofline bound
 
-Every subcommand runs on the card unless ``--device cpu`` asks for the CPU.
+``infer``, ``bench``, ``generate`` and ``profile`` run on the card unless
+``--device cpu`` asks for the CPU; ``quantize``, ``export``, ``sim``,
+``verify`` and ``fixtures`` are numpy on the host.  The artifact flow:
+
+    quantize --checkpoint ck.npz --output int8/
+    export --weights int8/fc1_weight_int8.npy --output fc1/ --name fc1
+    sim --artifact fc1/ --output golden.npy
+    verify --golden golden.npy --actual out.npy
+    bench --artifact fc1/
 
 Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
            --input x.npy
@@ -26,7 +41,12 @@ Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
 from __future__ import annotations
 
 import argparse
+import glob
+import importlib.util
 import json
+import os
+import pathlib
+import re
 import statistics
 import sys
 import time
@@ -67,6 +87,40 @@ def cmd_infer(args) -> int:
         print(f"sample {i}: class {pred}  (top3: {top})")
     print(f"{res.images_per_s:.1f} images/s on {eng.device}")
     return 0
+
+
+#: A test file that imports JAX or the JAX package (or the tests'
+#: conftest, which imports JAX).
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|resnet_accel_tpu|conftest)\b", re.M)
+
+
+def pytest_args(fail_fast: bool, jax_present: bool):
+    """pytest's arguments for ``test`` and the line it prints first: every
+    ``tests/test_torch_*.py`` where JAX can be imported; where it cannot,
+    the files that import no JAX, without ``tests/conftest.py`` (which
+    imports JAX)."""
+    tests_dir = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests")
+    files = sorted(glob.glob(os.path.join(tests_dir, "test_torch_*.py")))
+    extra = ["-q"] + (["-x"] if fail_fast else [])
+    if jax_present:
+        return (files + extra,
+                f"running the port's {len(files)} test files")
+    files = [f for f in files
+             if not _JAX_IMPORT.search(pathlib.Path(f).read_text())]
+    return (["--noconftest"] + files + extra,
+            f"jax is not installed: running the {len(files)} port test "
+            f"files that import no JAX, without tests/conftest.py: "
+            + ", ".join(os.path.basename(f) for f in files))
+
+
+def cmd_test(args) -> int:
+    import pytest
+    argv, note = pytest_args(args.fail_fast,
+                             importlib.util.find_spec("jax") is not None)
+    print(note, flush=True)
+    return int(pytest.main(argv))
 
 
 def _median_time_s(fn, iters: int, device) -> float:
@@ -166,6 +220,103 @@ def cmd_bench_conv(args) -> int:
     return 0
 
 
+class Chain:
+    """``calls`` dependent calls of ``step`` on the buffer ``a``, run as one:
+    on a card one replay of a CUDA graph captured here (make one eager call
+    of ``step`` first, so nothing of a first launch is captured), on the
+    CPU a loop.  ``runs`` counts the runs.  The wrappers count a launch
+    when it is captured, not when it is replayed: a run on the card
+    launches ``calls`` kernels that no count sees."""
+
+    def __init__(self, step, a, calls: int):
+        import torch
+        self.step, self.a, self.calls, self.runs = step, a, calls, 0
+        self.graph = None
+        if a.device.type == "cuda":
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                for _ in range(calls):
+                    step(a)
+
+    def __call__(self, _x=None):
+        self.runs += 1
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            for _ in range(self.calls):
+                self.step(self.a)
+        return self.a
+
+
+def artifact_step(packed, fold: int):
+    """One call of ``bench --artifact``'s chain: K4 on ``a``, the low bit
+    of its first ``fold`` outputs added back into ``a``'s first ``fold``
+    columns, in place (int8, wrapping), so that each call depends on the
+    last and ``a`` stays the buffer whose address K4's TMA map holds."""
+    from resnet_accel_tpu_torch.ops import bsr_matmul_wt
+
+    def step(a):
+        out = bsr_matmul_wt(a, packed)
+        a[:, :fold].add_(out[:, :fold] & 1)   # int32 sum cast back: wraps
+    return step
+
+
+def cmd_bench_artifact(args) -> int:
+    """One exported BSR layer directory (``export``'s, or the reference's
+    ``bsr_export_14x14/fc1``: 90.9 us, 28.41 GOPS on its Verilator model):
+    regrouped to 128 x 128 blocks and packed for K4; K4 on the activation
+    ``((k + m) % 256) - 128`` (M rows: 1 unless ``--batch``) held against
+    the golden bit for bit; then seconds a call, ``median_pair_time`` of a
+    chain of 1 and of ``--chain`` dependent calls (``artifact_step``), each
+    chain one CUDA graph on a card (device time, CUDA events) and a loop on
+    the CPU (host time).  GOPS count ``2 * nnz * bh * bw * M`` over the
+    layer's own blocks.  Prints one JSON row (``launches``: the K4 kernels
+    run on the card, graph replays included); exits 1 unless bit-exact."""
+    import torch
+    from resnet_accel_tpu_torch.golden import bsr_matmul_int8_wt
+    from resnet_accel_tpu_torch.ops import bsr_matmul_wt, pack_bsr
+    from resnet_accel_tpu_torch.runtime.backend import resolve_device
+    from resnet_accel_tpu_torch.runtime.perf import median_pair_time
+    from resnet_accel_tpu_torch.sparse import load_layer_dir, regroup_bsr
+
+    if args.chain < 2:
+        raise SystemExit(f"--chain must be >= 2, got {args.chain}")
+    dev = resolve_device(args.device)
+    bsr = load_layer_dir(args.artifact)
+    packed = pack_bsr(regroup_bsr(bsr, 128, 128), dev)
+    K, n = bsr.shape[1], bsr.shape[0]
+    M = args.batch if args.batch > 0 else 1
+    act = ((np.arange(K)[None, :] + np.arange(M)[:, None]) % 256 - 128
+           ).astype(np.int8)
+    actp = np.pad(act, ((0, 0), (0, bsr.padded_shape[1] - K)))
+    ref = bsr_matmul_int8_wt(actp, bsr.data, bsr.row_ptr, bsr.col_idx,
+                             bsr.block_h, bsr.block_w)[:, :n]
+    a = torch.from_numpy(act).to(dev)
+    with torch.inference_mode():
+        out = bsr_matmul_wt(a, packed)     # also the warm-up before capture
+        exact = bool(np.array_equal(out.cpu().numpy(), ref))
+        step = artifact_step(packed, min(K, n))
+        l1, lc = Chain(step, a, 1), Chain(step, a, args.chain)
+        dt = median_pair_time(l1, lc, a, args.chain, args.iters)
+    ops = 2 * bsr.nnz_blocks * bsr.block_h * bsr.block_w * M
+    row = {
+        "artifact": args.artifact, "M": M, "K": K, "N": n,
+        "nnz_blocks": bsr.nnz_blocks,
+        "block": f"{bsr.block_h}x{bsr.block_w}",
+        "bit_exact": exact,
+        "latency_us": dt * 1e6,
+        "gops": ops / dt / 1e9,
+        "launches": (1 + l1.runs + lc.runs * lc.calls
+                     if dev.type == "cuda" else 0),
+        "device": device_label(dev),
+    }
+    print(json.dumps(row))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(row, f, indent=2)
+    return 0 if exact else 1
+
+
 def cmd_bench(args) -> int:
     """Sizes x sparsities sweep: a square int8 W with 128 x 128 blocks
     zeroed at random, through ``bsr_matmul_wt``; latency, GOPS over the
@@ -174,6 +325,8 @@ def cmd_bench(args) -> int:
     blocks each walk one block row, so it bounds the time."""
     if args.conv:
         return cmd_bench_conv(args)
+    if args.artifact:
+        return cmd_bench_artifact(args)
     import torch
     from resnet_accel_tpu_torch.ops import bsr_matmul_wt, pack_bsr
     from resnet_accel_tpu_torch.runtime.backend import resolve_device
@@ -227,6 +380,125 @@ def cmd_bench(args) -> int:
     if args.output:
         with open(args.output, "w") as f:
             json.dump({"device": name, "rows": rows}, f, indent=2)
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    """An FP32 checkpoint (``{layer}.weight`` / ``{layer}.bias`` arrays)
+    quantized: per layer ``{layer}_{kind}_int8.npy`` beside
+    ``_scales.npy`` (weights, per channel) or ``_scale.json`` (biases, per
+    tensor), and ``quantization_metadata.json`` with each error; the layout
+    ``infer --model mnist --weights`` reads."""
+    from resnet_accel_tpu_torch.checkpoint import load_checkpoint
+    from resnet_accel_tpu_torch.quant import quantize_params_per_channel
+
+    q = quantize_params_per_channel(load_checkpoint(args.checkpoint))
+    os.makedirs(args.output, exist_ok=True)
+    metadata = {}
+    for pname, pdata in q.items():
+        lname = pname.replace(".", "_")
+        np.save(os.path.join(args.output, f"{lname}_int8.npy"),
+                pdata["data"])
+        if "scales" in pdata:
+            np.save(os.path.join(args.output, f"{lname}_scales.npy"),
+                    pdata["scales"])
+        else:
+            with open(os.path.join(args.output,
+                                   f"{lname}_scale.json"), "w") as f:
+                json.dump({"scale": float(pdata["scale"])}, f)
+        metadata[pname] = {
+            "shape": list(pdata["shape"]),
+            "quantization": "per_channel" if "scales" in pdata
+            else "per_tensor",
+            "error": pdata["error"],
+        }
+        print(f"quantized {pname}: shape {pdata['shape']} "
+              f"SNR {pdata['error']['snr_db']:.1f} dB")
+    with open(os.path.join(args.output,
+                           "quantization_metadata.json"), "w") as f:
+        json.dump(metadata, f, indent=2)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """A weight .npy (a 4-D conv weight is flattened to [O, I*kH*kW]) to a
+    BSR layer directory: int8 as it is, float quantized per row with
+    ``--scales`` or max|row| / 127."""
+    from resnet_accel_tpu_torch.sparse import (build_bsr,
+                                               build_bsr_int8_direct,
+                                               save_layer_dir)
+
+    w = np.load(args.weights)
+    if w.ndim == 4:
+        w = w.reshape(w.shape[0], -1)
+    if w.dtype == np.int8:
+        bsr = build_bsr_int8_direct(w, args.block_h, args.block_w)
+    else:
+        scales = (np.load(args.scales) if args.scales
+                  else np.maximum(np.abs(w).max(axis=1) / 127.0, 1e-12))
+        bsr = build_bsr(w, args.block_h, args.block_w,
+                        threshold=args.threshold, quantize=True,
+                        scales=scales)
+    save_layer_dir(bsr, args.output, args.name)
+    print(f"exported {args.name}: {bsr.nnz_blocks} blocks "
+          f"({bsr.sparsity_pct:.1f}% sparse), "
+          f"compression {bsr.compression_ratio():.1f}x")
+    return 0
+
+
+def cmd_sim(args) -> int:
+    """The golden model on a BSR layer directory: one row of activations
+    ``(k % 256) - 128`` over the padded K, every padded output."""
+    from resnet_accel_tpu_torch.golden import bsr_matmul_int8_wt
+    from resnet_accel_tpu_torch.sparse import load_layer_dir
+
+    bsr = load_layer_dir(args.artifact)
+    bsr.validate()
+    K = bsr.padded_shape[1]
+    act = ((np.arange(K) % 256) - 128).astype(np.int8).reshape(1, K)
+    out = bsr_matmul_int8_wt(act, bsr.data, bsr.row_ptr, bsr.col_idx,
+                             bsr.block_h, bsr.block_w)
+    print(f"artifact: {args.artifact}")
+    print(f"  shape {bsr.shape} padded {bsr.padded_shape} "
+          f"blocks {bsr.nnz_blocks} ({bsr.sparsity_pct:.1f}% sparse)")
+    print(f"  golden output[:8]: {out[0, :8].tolist()}")
+    if args.output:
+        np.save(args.output, out)
+        print(f"  saved golden output to {args.output}")
+    return 0
+
+
+def cmd_verify(args) -> int:
+    """Element-wise comparison of two .npy arrays within ``--tolerance``
+    (default 0): PASS (exit 0), or FAIL (exit 1) with the first ten
+    mismatches."""
+    a = np.load(args.golden)
+    b = np.load(args.actual)
+    if a.shape != b.shape:
+        print(f"FAIL: shape mismatch {a.shape} vs {b.shape}")
+        return 1
+    diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    n_bad = int((diff > args.tolerance).sum())
+    print(f"compared {a.size} elements, tolerance {args.tolerance}")
+    if n_bad == 0:
+        print("PASS: outputs match")
+        return 0
+    idx = np.argwhere(diff > args.tolerance)[:10]
+    print(f"FAIL: {n_bad} mismatches (max diff {int(diff.max())})")
+    for i in idx:
+        t = tuple(i)
+        print(f"  at {t}: golden={a[t]} actual={b[t]}")
+    return 1
+
+
+def cmd_fixtures(args) -> int:
+    """Write the synthetic sparse fixture tree (``sparse/fixtures.py``)."""
+    from resnet_accel_tpu_torch.sparse.fixtures import generate_all_fixtures
+
+    made = generate_all_fixtures(args.output, seed=args.seed)
+    for k, v in made.items():
+        print(f"  {k} -> {v}")
+    print(f"generated {len(made)} fixtures under {args.output}")
     return 0
 
 
@@ -320,10 +592,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="CIFAR geometry: 3x3 stem, no max pool")
     pi.set_defaults(fn=cmd_infer)
 
+    pt = sub.add_parser("test", help="run the port's tests")
+    pt.add_argument("--fail-fast", action="store_true")
+    pt.set_defaults(fn=cmd_test)
+
     pb = sub.add_parser("bench", help="dense-vs-sparse GEMM or conv sweep")
     pb.add_argument("--conv", action="store_true",
                     help="the zero-skip conv against the dense conv at "
                          "ResNet-18's strided convs")
+    pb.add_argument("--artifact", default=None, metavar="DIR",
+                    help="one exported BSR layer directory instead of the "
+                         "sweep (the reference's FC1 on its Verilator "
+                         "model: 90.9 us, 28.41 GOPS)")
+    pb.add_argument("--chain", type=int, default=256,
+                    help="--artifact only: dependent calls a timed chain")
     pb.add_argument("--sparsity", type=float, default=0.7,
                     help="--conv only: share of the tap blocks zeroed")
     pb.add_argument("--sizes", default="2048,4096",
@@ -331,7 +613,8 @@ def build_parser() -> argparse.ArgumentParser:
     pb.add_argument("--sparsities", default="0.0,0.5,0.7,0.9",
                     help="GEMM sweep only (--conv ignores it)")
     pb.add_argument("--batch", type=int, default=0,
-                    help="rows M (0 = 512); --conv: images (0 = 64)")
+                    help="rows M (0 = 512; --artifact: 0 = 1); --conv: "
+                         "images (0 = 64)")
     pb.add_argument("--iters", type=int, default=5)
     pb.add_argument("--output", default=None)
     pb.add_argument("--no-cpu-baseline", action="store_true",
@@ -339,6 +622,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "none)")
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_bench)
+
+    pq = sub.add_parser("quantize", help="FP32 checkpoint -> INT8")
+    pq.add_argument("--checkpoint", required=True)
+    pq.add_argument("--output", required=True)
+    pq.set_defaults(fn=cmd_quantize)
+
+    pe = sub.add_parser("export", help="weights -> BSR artifact")
+    pe.add_argument("--weights", required=True, help=".npy weight matrix")
+    pe.add_argument("--scales", default=None)
+    pe.add_argument("--output", required=True)
+    pe.add_argument("--name", default="layer")
+    pe.add_argument("--block-h", type=int, default=14)
+    pe.add_argument("--block-w", type=int, default=14)
+    pe.add_argument("--threshold", type=float, default=1e-10)
+    pe.set_defaults(fn=cmd_export)
+
+    ps = sub.add_parser("sim", help="golden software model on artifact")
+    ps.add_argument("--artifact", required=True)
+    ps.add_argument("--output", default=None)
+    ps.set_defaults(fn=cmd_sim)
+
+    pv = sub.add_parser("verify",
+                        help="element-wise output comparison (tol 0)")
+    pv.add_argument("--golden", required=True)
+    pv.add_argument("--actual", required=True)
+    pv.add_argument("--tolerance", type=int, default=0)
+    pv.set_defaults(fn=cmd_verify)
+
+    pf = sub.add_parser("fixtures", help="regenerate sparse test fixtures")
+    pf.add_argument("--output", required=True)
+    pf.add_argument("--seed", type=int, default=42)
+    pf.set_defaults(fn=cmd_fixtures)
 
     pg = sub.add_parser("generate",
                         help="greedy decode on the INT8 sparse LM")

@@ -1,21 +1,25 @@
-"""INT8 block-sparse projections of the transformer family.
+"""INT8 block-sparse projections and single-head sparse attention.
 
-Counterpart of ``SparseProjection`` in ``resnet_accel_tpu/models/attention.py``.
-A projection W[d_out, d_in] is per-channel INT8 in BSR form; it maps int8
-activations with one float32 scale to float32:
+Counterpart of ``resnet_accel_tpu/models/attention.py``.  A projection
+W[d_out, d_in] is per-channel INT8 in BSR form; it maps int8 activations
+with one float32 scale to float32:
 
     acc = x_int8 @ W^T                          (int8 x int8 -> int32)
     out = float32(acc) * (float32(x_scale) * scales) + bias
 
 ``SparseProjection`` holds the numpy data and the golden; ``to(device)``
 gives a :class:`PackedProjection` whose ``project`` runs the gather-compact
-BSR product (``bsr_matmul_wt_xla``) on the device.
+BSR product (``bsr_matmul_wt_xla``) on the device.  The transformer
+family's layers use them, and so does :class:`SparseAttentionInt8`, which
+runs the fixture tree's Q/K/V projections (``sparse/fixtures.py``) and
+softmax(QK^T / sqrt(d)) V over them in float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,7 +30,10 @@ from resnet_accel_tpu_torch.ops.bsr_matmul import (
     bsr_matmul_wt_xla,
     pack_gather_bsr,
 )
+from resnet_accel_tpu_torch.runtime.backend import resolve_device
 from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix
+from resnet_accel_tpu_torch.sparse.io import (load_layer_dir,
+                                              load_layer_scales_bias)
 
 
 @dataclasses.dataclass
@@ -36,6 +43,16 @@ class SparseProjection:
     bsr: BSRMatrix
     scales: np.ndarray          # [d_out] float32 per-channel weight scales
     bias: Optional[np.ndarray]  # [d_out] float32
+
+    @classmethod
+    def from_fixture_dir(cls, path: str) -> "SparseProjection":
+        """A fixture directory (``sparse/fixtures.py``'s layout); its
+        ``scales.npy`` is required, ``bias.npy`` optional."""
+        bsr = load_layer_dir(path)
+        scales, bias = load_layer_scales_bias(path)
+        if scales is None:
+            raise ValueError(f"{path}: missing scales.npy")
+        return cls(bsr=bsr, scales=scales, bias=bias)
 
     @property
     def d_out(self) -> int:
@@ -85,3 +102,74 @@ class PackedProjection:
         if self.bias is not None:
             out = out + self.bias
         return out
+
+
+@dataclasses.dataclass
+class SparseAttentionInt8:
+    """Single-head attention over INT8 block-sparse Q/K/V projections, on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    The input is quantized per tensor, the three projections run as int8
+    block-sparse products dequantized per output channel, and
+    softmax(QK^T / sqrt(d)) V runs in float32 with TF32 off (the JAX
+    package pins ``Precision.HIGHEST``)."""
+
+    q: SparseProjection
+    k: SparseProjection
+    v: SparseProjection
+    device: Union[str, torch.device] = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.packed = {name: getattr(self, name).to(self.device)
+                       for name in ("q", "k", "v")}
+
+    @classmethod
+    def from_fixture_root(cls, root: str, device: Union[str, torch.device]
+                          = "cuda") -> "SparseAttentionInt8":
+        """A directory holding ``q/``, ``k/`` and ``v/`` fixture
+        directories (``generate_all_fixtures``' ``transformer/80pct``)."""
+        subs = {}
+        for name in ("q", "k", "v"):
+            p = os.path.join(root, name)
+            if not os.path.isdir(p):
+                raise FileNotFoundError(f"missing projection dir {p}")
+            subs[name] = SparseProjection.from_fixture_dir(p)
+        return cls(q=subs["q"], k=subs["k"], v=subs["v"], device=device)
+
+    def sparsity_report(self) -> Dict[str, float]:
+        return {name: proj.bsr.sparsity_pct / 100.0
+                for name, proj in
+                (("q", self.q), ("k", self.k), ("v", self.v))}
+
+    def __call__(self, x) -> torch.Tensor:
+        """[T, d_model] float32 (array or tensor) -> [T, d_head] float32 on
+        ``device``."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x_scale = torch.clamp_min(x.abs().max() / 127.0, 1e-12)
+        xq = torch.clamp(torch.round(x / x_scale), -128, 127).to(torch.int8)
+        q, k, v = (self.packed[n].project(xq, x_scale)
+                   for n in ("q", "k", "v"))
+        d = q.shape[-1]
+        cuda_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            logits = (q @ k.T) / torch.sqrt(torch.tensor(
+                d, dtype=torch.float32, device=self.device))
+            return torch.softmax(logits, dim=-1) @ v
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = cuda_tf32
+
+    def forward_golden(self, x: np.ndarray) -> np.ndarray:
+        """The numpy golden of ``__call__``."""
+        x = np.asarray(x, np.float32)
+        x_scale = max(float(np.abs(x).max()) / 127.0, 1e-12)
+        xq = np.clip(np.rint(x / x_scale), -128, 127).astype(np.int8)
+        q = self.q.project_golden(xq, x_scale)
+        k = self.k.project_golden(xq, x_scale)
+        v = self.v.project_golden(xq, x_scale)
+        d = q.shape[-1]
+        logits = (q @ k.T) / np.sqrt(np.float32(d))
+        e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        attn = e / e.sum(axis=-1, keepdims=True)
+        return attn @ v

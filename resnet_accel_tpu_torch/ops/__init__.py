@@ -9,6 +9,7 @@ from resnet_accel_tpu_torch.ops.bsr_matmul import (
     bsr_matmul_wt_plain,
     bsr_matmul_wt_xla,
     bsr_plan,
+    device_pack_gather,
     pack_bsr,
     pack_gather_bsr,
 )
@@ -81,6 +82,7 @@ __all__ = [
     "bsr_plan",
     "conv2d_int8",
     "conv2d_int8_plain",
+    "device_pack_gather",
     "exact_inv_out_scale",
     "exact_pow2_inv",
     "expand_add_int8",

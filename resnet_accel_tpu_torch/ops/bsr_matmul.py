@@ -22,7 +22,9 @@ the ``mma.sync`` path for any other block shape or a K that TMA refuses.
 
 ``bsr_matmul_wt_xla`` over a :class:`GatherBSR` is the other route, the
 one the LM's projections take, as the JAX package's LM does: the
-counterpart of the JAX package's XLA composition of the same name.
+counterpart of the JAX package's XLA composition of the same name.  Its
+packers: :func:`pack_gather_bsr` from a host ``BSRMatrix``,
+:func:`device_pack_gather` from a dense int8 weight already on a device.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 from resnet_accel_tpu_torch import _kernels
 from resnet_accel_tpu_torch._kernels import GemmPlan, cluster_split
 from resnet_accel_tpu_torch.ops.epilogue import requantize
-from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix
+from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix, round_up
 
 
 #: The largest block side of the small-block path: a block padded to 16
@@ -347,6 +349,53 @@ def pack_gather_bsr(bsr: BSRMatrix, device) -> GatherBSR:
         lmax=lmax, block_h=bh, block_w=bw,
         n_out=bsr.shape[0], k_dim=bsr.shape[1],
         n_padded=bsr.padded_shape[0], k_padded=bsr.padded_shape[1])
+
+
+def device_pack_gather(w2d: torch.Tensor, block_h: int,
+                       block_w: Optional[int] = None,
+                       lmax: Optional[int] = None) -> GatherBSR:
+    """Pack a dense int8 weight W[N, K] into a :class:`GatherBSR` on its
+    own device, in torch ops: the counterpart of the JAX package's
+    ``sparse/device_pack.py::device_pack_gather`` (an XLA composition
+    there too, no Pallas kernel), for weights that arrive on the card
+    dense.
+
+    Every block row keeps ``lmax`` slots (default: the dense block count
+    of a row): its nonzero blocks in ascending column order, then zero
+    filler blocks at gather index 0.  Raises ValueError on a weight that is
+    not int8 and on a block row with more than ``lmax`` nonzero blocks
+    (which the fixed slots would cut off)."""
+    if w2d.dtype != torch.int8:
+        raise ValueError("device pack expects int8 weights")
+    if block_w is None:
+        block_w = block_h
+    n, k = w2d.shape
+    np_, kp = round_up(n, block_h), round_up(k, block_w)
+    nbr, nbc = np_ // block_h, kp // block_w
+    lmax = nbc if lmax is None else min(lmax, nbc)
+    tiles = F.pad(w2d, (0, kp - k, 0, np_ - n)).reshape(
+        nbr, block_h, nbc, block_w).permute(0, 2, 1, 3)
+    nz = (tiles != 0).any(dim=3).any(dim=2)                 # [nbr, nbc]
+    counts = nz.sum(dim=1)
+    most = int(counts.max()) if nbr else 0
+    if most > lmax:
+        raise ValueError(f"lmax={lmax} too small: a block-row has {most} "
+                         f"nonzero blocks")
+    # the nonzero columns first, each row's in ascending order (stable)
+    order = torch.sort((~nz).to(torch.uint8), dim=1, stable=True).indices
+    valid = (torch.arange(lmax, device=w2d.device)[None, :]
+             < counts[:, None])                              # [nbr, lmax]
+    gidx = torch.where(valid, order[:, :lmax], 0)
+    rows = torch.arange(nbr, device=w2d.device)[:, None]
+    blocks = torch.where(valid[:, :, None, None], tiles[rows, gidx],
+                         torch.zeros((), dtype=torch.int8,
+                                     device=w2d.device))
+    weight = blocks.to(torch.float64).transpose(2, 3).reshape(
+        nbr, lmax * block_w, block_h)
+    return GatherBSR(
+        blocks=blocks.contiguous(), gather_idx=gidx.contiguous(),
+        weight=weight.contiguous(), lmax=lmax, block_h=block_h,
+        block_w=block_w, n_out=n, k_dim=k, n_padded=np_, k_padded=kp)
 
 
 def bsr_matmul_wt_xla(a: torch.Tensor, g: GatherBSR) -> torch.Tensor:

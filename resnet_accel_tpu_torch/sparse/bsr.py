@@ -1,9 +1,9 @@
 """BSR (Block Sparse Row) matrices in numpy: dense <-> block-sparse.
 
 A copy of ``resnet_accel_tpu/sparse/bsr.py`` (``BSRMatrix``,
-``build_bsr``, ``build_bsr_int8_direct``) and of the two helpers it takes
-from ``resnet_accel_tpu/config.py``, kept here so the port imports
-nothing of the JAX package.  The tests hold each copy equal to its
+``build_bsr``, ``build_bsr_int8_direct``, ``conv_weight_to_2d``) and of
+the two helpers it takes from ``resnet_accel_tpu/config.py``, kept here
+so the port imports nothing of the JAX package.  The tests hold each copy equal to its
 original.
 """
 
@@ -204,3 +204,12 @@ def build_bsr_int8_direct(
     when all its elements are zero."""
     weight_int8 = np.asarray(weight_int8, dtype=np.int8)
     return build_bsr(weight_int8, block_h, block_w, threshold=0.0)
+
+
+def conv_weight_to_2d(weight: np.ndarray) -> np.ndarray:
+    """Flatten a conv weight [O, I, kH, kW] to [O, I*kH*kW] for BSR and
+    the GEMM (export_bsr_14x14.py:556-558; the golden im2col's K order)."""
+    weight = np.asarray(weight)
+    if weight.ndim != 4:
+        raise ValueError(f"expected 4-D conv weight, got {weight.shape}")
+    return weight.reshape(weight.shape[0], -1)

@@ -31,6 +31,11 @@ def test_import_leaves_jax_out():
             "import resnet_accel_tpu_torch.ops.sparse_conv\n"
             "import resnet_accel_tpu_torch.ops.fused_stem\n"
             "import resnet_accel_tpu_torch.sparse.conv_bsr\n"
+            "import resnet_accel_tpu_torch.sparse.io\n"
+            "import resnet_accel_tpu_torch.sparse.fixtures\n"
+            "import resnet_accel_tpu_torch.models.attention\n"
+            "import resnet_accel_tpu_torch.checkpoint\n"
+            "import resnet_accel_tpu_torch.quant\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'resnet_accel_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'resnet_accel_tpu.')))\n"

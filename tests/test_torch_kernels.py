@@ -1123,3 +1123,61 @@ def test_probes(cuda):
     before["stem_fused"] += 1
     assert _kernels.launch_counts() == before
 
+
+
+def _fc1_artifact(cuda):
+    """``bench --artifact``'s K4 operand at the reference's FC1 geometry:
+    a seeded int8 [128, 9216] with 14 x 14 blocks zeroed at 0.9, exported
+    at 14 x 14 and regrouped to 128 x 128 (every superblock stored)."""
+    from resnet_accel_tpu_torch.sparse import (build_bsr_int8_direct,
+                                               regroup_bsr)
+    rng = np.random.default_rng(9216)
+    w = _i8(rng, (128, 9216))
+    keep = rng.random((10, 659)) >= 0.9
+    w *= np.repeat(np.repeat(keep, 14, 0), 14, 1)[:128, :9216].astype(
+        np.int8)
+    return ops.pack_bsr(regroup_bsr(build_bsr_int8_direct(w, 14)), cuda)
+
+
+def _artifact_act(M, cuda):
+    """``bench --artifact``'s activation: ((k + m) % 256) - 128."""
+    return _t(((np.arange(9216)[None, :] + np.arange(M)[:, None]) % 256
+               - 128).astype(np.int8), cuda)
+
+
+# K4 on the regrouped FC1 at batch 1 (127 of the M tile's 128 rows padding)
+# and 128, on its Hopper path.
+@pytest.mark.parametrize("M", [1, 128])
+def test_bsr_matmul_artifact(cuda, M):
+    pk = _fc1_artifact(cuda)
+    a = _artifact_act(M, cuda)
+    before = dict(_kernels.KERNELS["bsr_matmul"].variants)
+    got = ops.bsr_matmul_wt(a, pk)
+    torch.cuda.synchronize()
+    _variant_launched("bsr_matmul", before, "wgmma_tma")
+    assert torch.equal(got, ops.bsr_matmul_wt_plain(a, pk))
+
+
+def test_bsr_matmul_artifact_graph_chain(cuda):
+    """``bench --artifact``'s timed chain: K4 and its feedback captured in
+    a CUDA graph (4 calls), replayed twice after one eager call, equal to
+    nine dependent calls of the plain version; the captures counted once
+    and the replays not at all."""
+    from resnet_accel_tpu_torch.cli import Chain, artifact_step
+    pk = _fc1_artifact(cuda)
+    a = _artifact_act(1, cuda)
+    want = a.clone()
+    step = artifact_step(pk, 128)
+    before = _kernels.launch_counts()["bsr_matmul"]
+    step(a)
+    chain = Chain(step, a, 4)
+    chain()
+    chain()
+    torch.cuda.synchronize()
+    assert chain.runs == 2
+    assert _kernels.launch_counts()["bsr_matmul"] == before + 1 + 4
+    for _ in range(9):
+        out = ops.bsr_matmul_wt_plain(want, pk)
+        want[:, :128] += (out[:, :128] & 1).to(torch.int8)
+    assert not torch.equal(want, _artifact_act(1, cuda))
+    assert torch.equal(a, want)
