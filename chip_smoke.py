@@ -6,7 +6,9 @@ block-sparse kernels at the reference's 14 x 14 blocks, the probes, the
 serving runtime (the native loader's stream, the per-layer profiles, live
 power and the typed errors), and the artifact flow: quantize, export, sim,
 verify, ``bench --artifact``, the fixture tree, sparse attention and the
-gather pack on the card.
+gather pack on the card; and LM serving: sampling, speculative decoding
+with K5 in its prefill, the continuous and paged-KV batchers, ``score``
+and the CLI's ``serve``.
 
     python3 chip_smoke.py
 
@@ -206,18 +208,45 @@ result line) without them.  Phases, each fatal on failure:
    on the card (the 2048 GEMM's weight at 0.7 with 128 x 128 blocks, the
    14 x 14 fc1), its product equal to the host pack's, a too-small
    ``lmax`` raising.
+29. LM serving on phase 11's LM, each run with the counts reset just
+   before (K5 must launch 4 times a prefill, and never on a batcher):
+   ``generate_speculative(flash=True)``, greedy, draft 15, 640 -> 256 on
+   the seeded prompt and on a seeded 40-token motif repeated to 640
+   tokens, its tokens equal to ``generate(flash=True)``'s (phase 13's on
+   the seeded prompt); ``sample(flash=True)`` at temperature 0.8, top-k 40,
+   deterministic for seed 0, different for seed 1, equal to greedy at top-k
+   1; sampled speculation deterministic for its seed.  Then eight
+   640-token requests, 64 new tokens each, through ``ContinuousBatcher``
+   (8 slots, chunk 8) and ``PagedKVBatcher`` (page 16, a pool smaller than
+   slots x max_len; and with ``spec_draft`` 7), their greedy streams equal
+   to ``generate(parallel_prefill=False)``'s (batched; each row its own
+   run); two requests sharing 608 prompt tokens one after the other through
+   the ``ondemand`` engine with the prefix cache (the second skips those
+   608 prefill steps; streams equal); int8 KV pages (agreement printed, not
+   required: lossy by design); ``score()`` within 1e-4 of the teacher-forced
+   forward.  Logits, not only tokens (this random LM's greedy stream
+   repeats its newest token, so wrong positions or pages could keep the
+   argmax): the first request's logits at each of its 703 positions, one
+   decode step a token on a cache of its own, against 16-row
+   ``verify_step`` passes over the same tokens, against its slot's rows
+   in every ``ContinuousBatcher`` micro-step and in every chunked
+   ``PagedKVBatcher`` micro-step, and against the rows of its
+   ``spec_draft`` windows fed the same tokens (each within 1e-6; the rows
+   not bit for bit counted).  Prints tokens/s on the host clock, verify
+   passes and engine steps.  Then ``generate --flash --speculative`` and ``serve`` as
+   subprocesses, their tokens equal to the module's.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
-the served paths, phase 24's stream and phase 28's ``bench --artifact``
-included, its CUDA graphs' replays counted by hand; ms the kernel's time
-summed over the shapes of the paths walked: ResNet-18 and ResNet-50 for
-K1-K3, the sparse ResNet-18 for K4, ResNet-50 for K7, the four layers of
-one prompt's prefill for K5, the sweep's four cases for K8, the pooled
-and unpooled stem for K10, the batch-128 stem for K6; bound_ms the sum
-over the same calls of the larger of bytes / 3.35 TB/s and operations /
-the peak of their type, K5's at the 3xTF32 rate it runs; library_ms the
-PyTorch call timed beside the kernel, summed the same way, or null); the
-last is ``{"ok": true, "device": {...}}``.  Every time printed is
+the served paths, phase 24's stream, phase 28's ``bench --artifact`` (its
+CUDA graphs' replays counted by hand) and phase 29's decoders included; ms
+the kernel's time summed over the shapes of the paths walked: ResNet-18
+and ResNet-50 for K1-K3, the sparse ResNet-18 for K4, ResNet-50 for K7,
+the four layers of one prompt's prefill for K5, the sweep's four cases
+for K8, the pooled and unpooled stem for K10, the batch-128 stem for K6;
+bound_ms the sum over the same calls of the larger of bytes / 3.35 TB/s
+and operations / the peak of their type, K5's at the 3xTF32 rate it runs;
+library_ms the PyTorch call timed beside the kernel, summed the same way,
+or null); the last is ``{"ok": true, "device": {...}}``.  Every time printed is
 labelled with the card's name and power limit.
 """
 
@@ -2322,11 +2351,313 @@ def main() -> None:
     art.cleanup()
     print(f"phase 28 (the artifact flow): {time.perf_counter() - t28:.1f} s")
 
+    # ---- 29. LM serving: sampling, speculation, the batchers ----------
+    from resnet_accel_tpu_torch.models.lm import adjust_logits, prng_key
+    from resnet_accel_tpu_torch.runtime import (ContinuousBatcher,
+                                                PagedKVBatcher)
+    t29 = time.perf_counter()
+    n_layers = LM_CFG["n_layers"]
+    zlaunches = dict.fromkeys(_kernels.KERNELS, 0)
+
+    def lm_served(fn, what, prefills):
+        """``fn()`` on the host clock, counts reset just before: K5 must
+        launch ``n_layers`` times a prefill (none on a batcher).  Returns
+        (what fn returned, seconds)."""
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        (out, dt), counts = served_launches(
+            _kernels, run, ["flash_attention"] if prefills else [], what)
+        if counts["flash_attention"] != n_layers * prefills:
+            fail(f"{what}: flash_attention launched "
+                 f"{counts['flash_attention']} times, not {n_layers} a "
+                 f"prefill over {prefills}")
+        for k, n in counts.items():
+            zlaunches[k] += n
+        return out, dt
+
+    # 29.1 greedy speculative decoding against generate(flash=True), on the
+    # seeded prompt (phase 13's tokens) and on a seeded 40-token motif
+    # repeated to PROMPT tokens
+    motif = np.random.default_rng(SEED + 3).integers(0, LM_CFG["vocab"], 40)
+    rep_prompt = np.resize(motif, PROMPT).astype(np.int32)
+    rep_toks, dt = lm_served(
+        lambda: lmod.generate(rep_prompt, N_NEW, lm_scales, flash=True),
+        "generate(flash=True), repetitive prompt", 1)
+    print(f"generate(flash=True), repetitive prompt, {PROMPT} -> {N_NEW}: "
+          f"{N_NEW / dt:.1f} tokens/s (host clock)  ({label})")
+    spec_passes = {}
+    for what, p, want in (("seeded", prompt, toks1),
+                          ("repetitive", rep_prompt, rep_toks)):
+        (got, passes), dt = lm_served(
+            lambda: lmod.generate_speculative(
+                p, N_NEW, lm_scales, draft=15, flash=True,
+                return_stats=True),
+            f"generate_speculative(flash=True), {what} prompt", 1)
+        if not np.array_equal(got, want):
+            fail(f"speculative tokens, {what} prompt, differ from "
+                 f"generate(flash=True)'s at "
+                 f"{np.flatnonzero(got != want)[:8].tolist()}")
+        spec_passes[what] = passes
+        print(f"generate_speculative(flash=True), {what} prompt, draft 15, "
+              f"{PROMPT} -> {N_NEW}: tokens equal generate(flash=True)'s; "
+              f"{passes} verify passes, {N_NEW / dt:.1f} tokens/s (host "
+              f"clock)  ({label})")
+
+    # 29.2 sampling: deterministic for a seed, another seed differs, top-k
+    # 1 is greedy; sampled speculation deterministic for a seed
+    def sample(seed, top_k=40, temperature=0.8, n_new=N_NEW):
+        return lmod.sample(prompt, n_new, lm_scales, prng_key(seed),
+                           temperature=temperature, top_k=top_k, flash=True)
+    (s0, s0b, s1, top1), dt = lm_served(
+        lambda: (sample(0), sample(0), sample(1), sample(0, top_k=1)),
+        "sample(flash=True) x4", 4)
+    if s0.shape != (N_NEW,) or s0.min() < 0 or s0.max() >= LM_CFG["vocab"]:
+        fail(f"sampled tokens of shape {s0.shape} or out of the vocab")
+    if not np.array_equal(s0, s0b):
+        fail("sample(flash=True) is not deterministic for its seed")
+    if not np.array_equal(top1, toks1):
+        fail("sample(top_k=1) differs from greedy generate")
+    with torch.inference_mode():
+        first = lmod.prefill(prompt, sc, flash=True)[0]
+        top2 = torch.topk(first, 2).values
+        p_top = float(torch.softmax(adjust_logits(first, 0.8, 40), -1).max())
+    print(f"sample(flash=True), T 0.8, top-k 40: deterministic for seed 0, "
+          f"{int((s0 != s1).sum())} of {N_NEW} tokens differ for seed 1 "
+          f"(the first draw: top logit {float(top2[0]):.2f}, next "
+          f"{float(top2[1]):.2f}, top p {p_top:.6f}), top-k 1 equals greedy; "
+          f"{4 * N_NEW / dt:.1f} tokens/s (host clock)  ({label})")
+    # the tied readout puts the newest token's own logit far above the
+    # rest on this random LM, so a seed shows only at a high temperature
+    # (as tests/test_spec_sampling.py raises its own to 6 on its tiny LM)
+    (h0, h1), _ = lm_served(
+        lambda: (sample(0, temperature=100.0, n_new=64),
+                 sample(1, temperature=100.0, n_new=64)),
+        "sample(flash=True), T 100 x2", 2)
+    if np.array_equal(h0, h1):
+        fail("sample(flash=True) at T 100 equal for seeds 0 and 1")
+    print(f"sample(flash=True), T 100, top-k 40: {int((h0 != h1).sum())} of "
+          f"64 tokens differ between seeds 0 and 1")
+    ((a, pa), (b, _)), dt = lm_served(
+        lambda: [lmod.generate_speculative(
+            rep_prompt, N_NEW, lm_scales, draft=15, flash=True,
+            return_stats=True, temperature=0.8, top_k=40,
+            rng_key=prng_key(0)) for _ in range(2)],
+        "sampled generate_speculative(flash=True) x2", 2)
+    if not np.array_equal(a, b):
+        fail("sampled speculative decoding not deterministic for its seed")
+    print(f"sampled generate_speculative, repetitive prompt, T 0.8, top-k "
+          f"40: deterministic for seed 0, {pa} verify passes, "
+          f"{2 * N_NEW / dt:.1f} tokens/s (host clock)  ({label})")
+
+    # 29.3 the batchers' reference: generate(parallel_prefill=False), the
+    # decode steps a batcher runs, batched (each row its own run, phase 13)
+    NB = 64                               # new tokens a batcher request
+    shared = np.concatenate([prompts[0][:PROMPT - 32], prompts[1][:32]])
+    ref_prompts = np.concatenate([prompts, shared[None]])
+    ref, dt = lm_served(
+        lambda: lmod.generate(ref_prompts, NB, lm_scales,
+                              parallel_prefill=False, batched=True),
+        "generate(parallel_prefill=False), batched", 0)
+    print(f"generate(parallel_prefill=False), batch {len(ref_prompts)}, "
+          f"{PROMPT} -> {NB}: {ref.size / dt:.1f} tokens/s (host clock)  "
+          f"({label})")
+    reqs = [(p, NB) for p in prompts]
+
+    # The first request's chain (its prompt, then its greedy tokens but
+    # the last) one decode step a token on a cache of its own: its logits
+    # at every position, which a verify row and a batcher's slot must give
+    chain = np.concatenate([prompts[0], ref[0][:NB - 1]])
+    n_chain = len(chain)
+    chain_t = torch.as_tensor(chain, device=dev)
+
+    def logits_held(what, got, want):
+        """``got`` rows [n, V] against ``want``'s: fails beyond 1e-6;
+        prints the largest |difference| and the rows not bit for bit."""
+        err = max_abs_err(got, want)
+        apart = int((got != want).any(dim=-1).sum())
+        print(f"{what}: {got.shape[0]} rows, max |err| vs the lone decode "
+              f"steps {err:.3g}, {apart} rows not bit for bit")
+        if got.shape != want.shape or not err <= 1e-6:
+            fail(f"{what}: logits off the lone decode steps by {err}")
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        caches = lmod.init_caches()
+        lone = []
+        for tok in chain_t:
+            lg, caches = lmod.decode_step(caches, tok, sc)
+            lone.append(lg)
+        lone = torch.stack(lone)                             # [n_chain, V]
+        if not np.array_equal(lone[PROMPT - 1:].argmax(-1).cpu().numpy(),
+                              ref[0][:NB]):
+            fail("the lone decode steps' greedy tokens differ from "
+                 "generate(parallel_prefill=False)'s")
+        caches, rows = lmod.init_caches(), []
+        for w in range(0, n_chain, 16):
+            lv, caches = lmod.verify_step(caches, chain_t[w:w + 16], sc)
+            rows.append(lv)
+    print(f"lone decode of {n_chain} tokens and its verify passes: "
+          f"{time.perf_counter() - t0:.1f} s")
+    logits_held("verify_step, 16 rows a pass", torch.cat(rows), lone)
+
+    def serve(engine, reqs):
+        rids = [engine.submit(p, n) for p, n in reqs]
+        res = engine.run()
+        return [res[r] for r in rids]
+
+    def recorded(eng, name):
+        """Wrap the engine's device program ``name`` to keep each call's
+        arguments and logits (references only: no host sync)."""
+        calls, fn = [], getattr(eng, name)
+
+        def wrapped(*args):
+            out = fn(*args)
+            calls.append((args, out[0] if isinstance(out, tuple) else out))
+            return out
+        setattr(eng, name, wrapped)
+        return calls
+
+    def slot0_rows(calls):
+        """Slot 0's logits in each recorded call against the lone decode
+        steps: a micro-step (toks [B], lens [B]) gives one row, a window
+        (fed [B, S], positions [B, S], lens) the rows up to its first token
+        off the chain.  Stops where slot 0 leaves the chain."""
+        got, want, pos = [], [], -1
+        for args, lg in calls:
+            if lg.dim() == 2:                # a micro-step
+                toks, p0 = args[0][:1], int(args[1][0])
+                lg = lg[:1]
+            else:
+                toks, p0 = args[0][0], int(args[1][0, 0])
+                lg = lg[0]
+            if p0 < pos or p0 >= n_chain:
+                break
+            n = min(len(toks), n_chain - p0)
+            same = (toks[:n] == chain_t[p0:p0 + n]).cpu().numpy()
+            n = int(np.argmin(same)) if not same.all() else n
+            got.append(lg[:n])
+            want.append(lone[p0:p0 + n])
+            pos = p0
+        return torch.cat(got), torch.cat(want)
+
+    def batcher(what, make, reqs, want, program=None):
+        eng = make()
+        calls = recorded(eng, program) if program else None
+        got, dt = lm_served(lambda: serve(eng, reqs), what, 0)
+        n_tok = sum(len(g) for g in got)
+        agree = sum(int(np.sum(np.asarray(g) == w))
+                    for g, w in zip(got, want))
+        print(f"{what}: {len(reqs)} requests, {PROMPT} -> {NB}: {n_tok} "
+              f"tokens, {n_tok / dt:.1f} tokens/s (host clock), "
+              f"{eng.steps} engine steps / {eng.micro_steps} micro-steps; "
+              f"{agree} of {n_tok} tokens equal generate's  ({label})")
+        if calls is not None:
+            with torch.inference_mode():
+                g, w = slot0_rows(calls)
+            if g.shape[0] < PROMPT:
+                fail(f"{what}: only {g.shape[0]} of slot 0's rows follow "
+                     "the first request's chain")
+            logits_held(f"{what}, slot 0", g, w)
+        return eng, got, agree == n_tok and n_tok == sum(map(len, want))
+
+    pool = 1 + LM_BATCH * -(-(PROMPT + NB + 7) // 16)
+    cases = [
+        ("ContinuousBatcher, 8 slots, chunk 8", lambda: ContinuousBatcher(
+            lm, lm_scales, slots=LM_BATCH, chunk=8, device=dev), reqs,
+         ref[:LM_BATCH], "_decode"),
+        (f"PagedKVBatcher, page 16, {pool} pages (< "
+         f"{LM_BATCH * LM_CFG['max_len'] // 16} for slots x max_len), "
+         f"chunk 8", lambda: PagedKVBatcher(
+             lm, lm_scales, slots=LM_BATCH, page=16, pool_pages=pool,
+             device=dev), reqs, ref[:LM_BATCH], "_micro_step"),
+        ("PagedKVBatcher, spec_draft 7", lambda: PagedKVBatcher(
+            lm, lm_scales, slots=LM_BATCH, page=16, pool_pages=pool,
+            spec_draft=7, device=dev), reqs, ref[:LM_BATCH], "_forward")]
+    for what, make, rq, want, program in cases:
+        if not batcher(what, make, rq, want, program)[2]:
+            fail(f"{what}: greedy streams differ from "
+                 f"generate(parallel_prefill=False)")
+    # two requests sharing PROMPT - 32 tokens, one after the other: the
+    # second reuses the first's cached prompt pages
+    eng, _, ok = batcher(
+        "PagedKVBatcher, ondemand, prefix cache, 2 slots",
+        lambda: PagedKVBatcher(lm, lm_scales, slots=2, page=16,
+                               pool_pages=2 * 48 + 1, reserve="ondemand",
+                               prefix_cache=True, device=dev),
+        [(prompts[0], NB)], ref[:1])
+    got, dt = lm_served(lambda: serve(eng, [(shared, NB)]),
+                        "prefix-cached request", 0)
+    if not ok or got[0] != ref[LM_BATCH].tolist():
+        fail("ondemand prefix-cached streams differ from generate's")
+    if eng.cache_tokens_skipped != PROMPT - 32:
+        fail(f"prefix cache skipped {eng.cache_tokens_skipped} prompt "
+             f"tokens, not {PROMPT - 32}")
+    print(f"prefix-cached request: {eng.cache_hits} pages shared, "
+          f"{eng.cache_tokens_skipped} prefill steps skipped, "
+          f"{NB / dt:.1f} tokens/s (host clock); streams equal generate's")
+    # int8 KV pages: lossy by design, its agreement printed, not required
+    batcher("PagedKVBatcher, int8 KV, spec_draft 7", lambda: PagedKVBatcher(
+        lm, lm_scales, slots=LM_BATCH, page=16, pool_pages=pool,
+        kv_dtype="int8", spec_draft=7, device=dev), reqs, ref[:LM_BATCH])
+    # teacher-forced scoring through the paged micro-steps
+    seqs = [prompt[:200], prompts[2][:120]]
+    eng = PagedKVBatcher(lm, lm_scales, slots=2, page=16, pool_pages=32,
+                         device=dev)
+    lps, dt = lm_served(lambda: eng.score(seqs), "score()", 0)
+    with torch.inference_mode():
+        for seq, lp in zip(seqs, lps):
+            want = torch.log_softmax(lmod.forward(seq, lm_scales), -1)[
+                torch.arange(len(seq) - 1), torch.as_tensor(
+                    seq[1:], device=dev).long()].cpu().numpy()
+            err = float(np.abs(lp - want).max())
+            if lp.shape != want.shape or not err <= 1e-4:
+                fail(f"score() off the teacher-forced forward by {err}")
+            print(f"score(), {len(seq)} tokens: max |err| vs the "
+                  f"teacher-forced forward {err:.3g} (within 1e-4)")
+    print(f"score(): {sum(len(s) - 1 for s in seqs) / dt:.1f} tokens/s "
+          f"(host clock)  ({label})")
+
+    # 29.4 the CLI: generate --flash --speculative and serve
+    lm_args = ["--layers", str(n_layers), "--d-model", str(LM_CFG["d_model"]),
+               "--heads", str(LM_CFG["n_heads"]),
+               "--vocab", str(LM_CFG["vocab"]),
+               "--max-len", str(LM_CFG["max_len"]),
+               "--sparsity", str(LM_CFG["sparsity"]), "--seed", str(SEED),
+               "--device", dev.type]
+    serve_prompts = [prompts[3][:64], prompts[4][:64]]
+    serve_want = [lmod.generate(p, 32, lm_scales,
+                                parallel_prefill=False).tolist()
+                  for p in serve_prompts]
+    for args, expect in (
+            (["generate", "--flash", "--speculative", "--prompt",
+              ",".join(map(str, prompt.tolist())), "--n-new", str(N_NEW)],
+             [f"generated: {toks1.tolist()}",
+              f"speculative: {spec_passes['seeded']} verify passes"]),
+            (["serve", "--prompts", ";".join(",".join(map(str, p.tolist()))
+                                            for p in serve_prompts),
+              "--n-new", "32", "--page", "16", "--pool-pages", "16"],
+             [f"-> {w}" for w in serve_want])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "resnet_accel_tpu_torch", *args, *lm_args],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+        print("\n".join(ln[:160] for ln in proc.stdout.splitlines()))
+        print(f"{args[0]}: {time.perf_counter() - t0:.1f} s  ({label})")
+        if proc.returncode != 0 or not all(e in proc.stdout for e in expect):
+            print(proc.stderr, file=sys.stderr)
+            fail(f"CLI {args[0]} exited {proc.returncode} or its tokens "
+                 f"differ from the module's")
+    print(f"phase 29 (LM serving): {time.perf_counter() - t29:.1f} s")
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
              + qlaunches[name] + rlaunches[name] + m14launches[name]
              + s14launches[name] + s128launches[name] + nlaunches[name]
-             + alaunches[name] for name in _kernels.KERNELS}
+             + alaunches[name] + zlaunches[name] for name in _kernels.KERNELS}
     total["bsr_matmul"] += art_k4
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     kernels = []

@@ -11,15 +11,19 @@
     sim       the golden model on a BSR layer directory (no card)
     verify    element-wise comparison of two .npy outputs (tolerance 0)
     fixtures  write the synthetic sparse fixture tree
-    generate  greedy decoding on the INT8 block-sparse decoder LM
+    generate  decoding on the INT8 block-sparse decoder LM: greedy, or
+              sampled with --temperature/--top-k, and with --speculative
+              prompt-lookup speculative decoding
+    serve     continuous-batching LM serving on the paged-KV engine
     profile   per-layer table of a ResNet of the family: the measured
               forward over the layers' roofline times, or with --measured
               each layer's device time from a torch.profiler trace beside
               its roofline bound
 
-``infer``, ``bench``, ``generate`` and ``profile`` run on the card unless
-``--device cpu`` asks for the CPU; ``quantize``, ``export``, ``sim``,
-``verify`` and ``fixtures`` are numpy on the host.  The artifact flow:
+``infer``, ``bench``, ``generate``, ``serve`` and ``profile`` run on the
+card unless ``--device cpu`` asks for the CPU; ``quantize``, ``export``,
+``sim``, ``verify`` and ``fixtures`` are numpy on the host.  The artifact
+flow:
 
     quantize --checkpoint ck.npz --output int8/
     export --weights int8/fc1_weight_int8.npy --output fc1/ --name fc1
@@ -35,6 +39,9 @@ Usage: python -m resnet_accel_tpu_torch infer --model resnet --depth 50 \\
        python -m resnet_accel_tpu_torch bench
        python -m resnet_accel_tpu_torch bench --conv
        python -m resnet_accel_tpu_torch generate --flash --prompt 1,2,3
+       python -m resnet_accel_tpu_torch generate --speculative \
+           --temperature 0.8 --top-k 40
+       python -m resnet_accel_tpu_torch serve --prompts "1,2,3;4,5"
        python -m resnet_accel_tpu_torch profile --measured --batch 128
 """
 
@@ -502,11 +509,10 @@ def cmd_fixtures(args) -> int:
     return 0
 
 
-def cmd_generate(args) -> int:
-    """Greedy decoding on a seeded INT8 block-sparse decoder LM: static
-    scales calibrated on ``min(16, max_len)`` seeded tokens, the prompt's
-    KV caches filled by one causal forward per block (through K5 with
-    ``--flash``), then a decode loop."""
+def _seeded_lm(args):
+    """The seeded INT8 block-sparse decoder LM of ``generate`` and
+    ``serve``, with static scales calibrated on ``min(16, max_len)`` seeded
+    tokens."""
     from resnet_accel_tpu_torch.models.lm import TransformerLMInt8
 
     lm = TransformerLMInt8.from_random(
@@ -516,21 +522,107 @@ def cmd_generate(args) -> int:
     rng = np.random.default_rng(args.seed)
     calib = rng.integers(0, args.vocab,
                          min(16, args.max_len)).astype(np.int32)
-    scales = lm.calibrate(calib)
+    return lm, lm.calibrate(calib)
+
+
+def cmd_generate(args) -> int:
+    """Decoding on a seeded INT8 block-sparse decoder LM: the prompt's KV
+    caches filled by one causal forward per block (through K5 with
+    ``--flash``), then greedy decoding, sampling (``--temperature`` > 0,
+    ``--top-k``, ``--sample-seed``) or, with ``--speculative``,
+    prompt-lookup speculative decoding of ``--draft`` tokens a pass."""
+    from resnet_accel_tpu_torch.models.lm import prng_key
+
+    lm, scales = _seeded_lm(args)
     prompt = np.asarray(
         [int(t) for t in args.prompt.split(",")], np.int32)
     if prompt.size + args.n_new > args.max_len:
         raise SystemExit("prompt + n_new exceeds --max-len")
     module = lm.module(args.device)
+    if args.temperature <= 0 and (args.top_k is not None
+                                  or args.sample_seed != 0):
+        print("warning: --top-k/--sample-seed have no effect with "
+              "temperature 0 (greedy decoding); pass --temperature > 0 "
+              "to sample", file=sys.stderr)
+    key = prng_key(args.sample_seed) if args.temperature > 0 else None
     t0 = time.perf_counter()
-    toks = module.generate(prompt, args.n_new, scales, flash=args.flash)
+    spec_steps = None
+    if args.speculative:
+        # a verify pass writes draft + 1 K/V rows past the final length:
+        # shrink the draft to the headroom max_len leaves
+        draft = min(args.draft, args.max_len - prompt.size - args.n_new)
+        if draft < 1:
+            raise SystemExit("--speculative needs at least 1 token of "
+                             "--max-len headroom beyond prompt + n_new")
+        if draft < args.draft:
+            print(f"note: draft shrunk to {draft} (max-len headroom)",
+                  file=sys.stderr)
+        toks, spec_steps = module.generate_speculative(
+            prompt, args.n_new, scales, draft=draft, flash=args.flash,
+            return_stats=True, temperature=args.temperature,
+            top_k=args.top_k, rng_key=key)
+    elif args.temperature > 0:
+        toks = module.sample(prompt, args.n_new, scales, key,
+                             temperature=args.temperature, top_k=args.top_k,
+                             flash=args.flash)
+    else:
+        toks = module.generate(prompt, args.n_new, scales, flash=args.flash)
     dt = time.perf_counter() - t0
     print(f"prompt:    {prompt.tolist()}")
     print(f"generated: {toks.tolist()}")
+    if spec_steps is not None:
+        basis = ("distribution-exact vs sample()"
+                 if args.temperature > 0 else "identical to greedy")
+        print(f"speculative: {int(spec_steps)} verify passes for "
+              f"{args.n_new} tokens (outputs {basis})")
     mean_sp = float(np.mean(
         list(lm.blocks[0].sparsity_report().values())))
     print(f"{args.n_new} tokens in {dt:.2f}s on {module.device}; "
           f"sparsity {mean_sp:.0%} per projection")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Continuous-batching serving on the paged-KV engine: several requests
+    admitted into lockstep decode lanes over a page pool, with sampling,
+    on-demand pages, prefix caching, int8 KV pages and speculative decoding
+    on the command line.  Prints each request's stream and the engine's
+    counters."""
+    from resnet_accel_tpu_torch.runtime.paged import PagedKVBatcher
+
+    lm, scales = _seeded_lm(args)
+    prompts = [[int(t) for t in p.split(",")]
+               for p in args.prompts.split(";")]
+    for p in prompts:
+        if len(p) + args.n_new > args.max_len:
+            raise SystemExit("prompt + n_new exceeds --max-len")
+    eng = PagedKVBatcher(
+        lm, scales, slots=args.slots, page=args.page,
+        pool_pages=args.pool_pages, chunk=args.chunk,
+        temperature=args.temperature, top_k=args.top_k,
+        reserve=args.reserve, prefix_cache=args.prefix_cache,
+        kv_dtype=args.kv_dtype, spec_draft=args.spec_draft,
+        spec_adaptive=args.spec_adaptive, device=args.device)
+    rids = [eng.submit(p, args.n_new, seed=args.sample_seed + i)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    res = eng.run()
+    dt = time.perf_counter() - t0
+    toks = 0
+    for i, (p, rid) in enumerate(zip(prompts, rids)):
+        print(f"req {i}: prompt {p} -> {res[rid]}")
+        toks += len(res[rid])
+    bits = [f"{toks} tokens in {dt:.2f}s on {eng.device}",
+            f"{eng.steps} engine steps / {eng.micro_steps} micro-steps",
+            f"pool {eng.kv_pool_bytes() / 1e6:.2f} MB ({args.kv_dtype})"]
+    if args.prefix_cache:
+        bits.append(f"cache hits {eng.cache_hits} "
+                    f"(+{eng.cache_tokens_skipped} prefill skipped)")
+    if eng.preemptions:
+        bits.append(f"preemptions {eng.preemptions}")
+    if args.spec_adaptive:
+        bits.append(f"spec mode switches {eng.spec_switches}")
+    print("; ".join(bits))
     return 0
 
 
@@ -655,8 +747,7 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--seed", type=int, default=42)
     pf.set_defaults(fn=cmd_fixtures)
 
-    pg = sub.add_parser("generate",
-                        help="greedy decode on the INT8 sparse LM")
+    pg = sub.add_parser("generate", help="decode on the INT8 sparse LM")
     pg.add_argument("--prompt", default="1,2,3",
                     help="comma-separated token ids")
     pg.add_argument("--n-new", type=int, default=8)
@@ -669,8 +760,55 @@ def build_parser() -> argparse.ArgumentParser:
     pg.add_argument("--seed", type=int, default=0)
     pg.add_argument("--flash", action="store_true",
                     help="flash-attention prefill (kernel K5)")
+    pg.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    pg.add_argument("--top-k", type=int, default=None,
+                    help="top-k truncation for sampling")
+    pg.add_argument("--sample-seed", type=int, default=0)
+    pg.add_argument("--speculative", action="store_true",
+                    help="prompt-lookup speculative decoding: greedy "
+                         "outputs identical to generate; with "
+                         "--temperature > 0, rejection-sampled "
+                         "(distribution-exact vs sample); fewer "
+                         "decode passes either way")
+    pg.add_argument("--draft", type=int, default=15,
+                    help="speculative draft length per verify pass")
     pg.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pg.set_defaults(fn=cmd_generate)
+
+    pv2 = sub.add_parser(
+        "serve", help="continuous-batching LM serving (paged KV)")
+    pv2.add_argument("--prompts", default="1,2,3;4,5;6,7,8,9",
+                     help="semicolon-separated requests, each a "
+                          "comma-separated token-id prompt")
+    pv2.add_argument("--n-new", type=int, default=8)
+    pv2.add_argument("--slots", type=int, default=2)
+    pv2.add_argument("--page", type=int, default=8)
+    pv2.add_argument("--pool-pages", type=int, default=24)
+    pv2.add_argument("--chunk", type=int, default=8)
+    pv2.add_argument("--reserve", default="full",
+                     choices=["full", "ondemand"])
+    pv2.add_argument("--prefix-cache", action="store_true")
+    pv2.add_argument("--kv-dtype", default="fp32",
+                     choices=["fp32", "int8"])
+    pv2.add_argument("--spec-draft", type=int, default=0,
+                     help="speculative verify window (0 = off)")
+    pv2.add_argument("--spec-adaptive", action="store_true",
+                     help="fall back to chunked steps while the measured "
+                          "acceptance EWMA does not beat them (greedy "
+                          "only)")
+    pv2.add_argument("--temperature", type=float, default=0.0)
+    pv2.add_argument("--top-k", type=int, default=None)
+    pv2.add_argument("--sample-seed", type=int, default=0)
+    pv2.add_argument("--layers", type=int, default=2)
+    pv2.add_argument("--d-model", type=int, default=128)
+    pv2.add_argument("--heads", type=int, default=4)
+    pv2.add_argument("--vocab", type=int, default=64)
+    pv2.add_argument("--max-len", type=int, default=64)
+    pv2.add_argument("--sparsity", type=float, default=0.8)
+    pv2.add_argument("--seed", type=int, default=0)
+    pv2.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pv2.set_defaults(fn=cmd_serve)
 
     pp = sub.add_parser("profile", help="per-layer profile of a ResNet")
     pp.add_argument("--depth", type=int, default=18,

@@ -44,6 +44,18 @@ K8 at the conv sweep's four cases (``bench --conv``'s data: batch 64,
 128 x 128 tap blocks zeroed at 0.7, seed 1), each case and their sum, with
 the dense K2 on the same weights timed beside each, and at l3.c1 and l4.ds
 with (16, 14) blocks (``chip_smoke.py`` phase 22's data, seed 4);
+LM: the checkout's serving LM (``chip_smoke.py``'s phase 11 model: d_model
+512, 8 heads, d_ff 1024, 4 layers, vocab 256, 0.8 block sparsity, seed 0,
+calibrated on 16 seeded tokens), at phase 13's request: the prefill of a
+640-token prompt through K5 and the 255 decode steps after it, at batch 1
+and 8 (host clock to a sync, medians of 5), the device time under
+torch.profiler of one batch-1 prefill and of 32 decode steps after it, and
+two row checks, each the largest |logit difference| over 64 seeded tokens
+fed to clones of one prefilled cache: eight identical rows against a lone
+decode (``max_abs_err``), and, where the checkout has ``verify_step``,
+16-token verify passes against the lone decode steps; and, where it has
+``runtime/paged.py``, ``score()`` of 200 prompt tokens against the
+teacher-forced forward's log-probs (``chip_smoke.py`` phase 29's check);
 R18: the checkout's whole ResNet-18 forward at batch 128 through
 ``InferenceEngine.benchmark`` (seed-0 weights, median of ``--iters``),
 dense and pruned 0.7 in 128 x 128 blocks (K4's Hopper path); R50: its
@@ -100,6 +112,12 @@ The stem's ablations edit the
 tile K1 and K10 share (``csrc/stem_mma_tile.cuh``), so each reaches both
 but ``k1_no_loads`` (fp32 loads), ``k10_no_loads`` (int8 loads) and
 ``k10_no_requant`` (unpooled K10's requant).
+``--cases LM`` runs the LM case on the checkout and on copies whose
+decode path sums a part in float32 instead of float64: the LayerNorms
+(``lm_ln32``), the attention (``lm_attn32``), the readout
+(``lm_readout32``) and all three (``lm_f32``), and a copy whose
+teacher-forced forward is float32 (``lm_fwd32``): what each costs a
+decode step, and whether rows and ``score()`` still hold without it.
 Needs a card; exits non-zero without one.
 """
 
@@ -123,8 +141,26 @@ _CONV_NO_EPILOGUE = [
      "        if (!kConv) store_fragment<BN, kConv>(p, acc, wk, r0, lq);"),
 ]
 
-#: Parts of a kernel knocked out for ``--ablate``: (source under csrc/,
-#: text, replacement) edits, each of which must apply once.
+#: The decode path's float64 reductions, each back in float32, and the
+#: LM's teacher-forced forward in float32 (``lm_*``).
+_LM_LN32 = ("models/transformer.py",
+            "        if not rows:\n            mu = v.mean(",
+            "        if True:\n            mu = v.mean(")
+_LM_ATTN32 = ("models/transformer.py",
+              "        if not rows:\n            logits = torch.matmul(",
+              "        if True:\n            logits = torch.matmul(")
+_LM_READOUT32 = ("models/lm.py",
+                 "        return torch.matmul(h.to(torch.float64),\n"
+                 "                            self.embed64.T).to(torch.float32)",
+                 "        return torch.matmul(h, self.embed.T)")
+_LM_FWD32 = ("models/lm.py",
+             "flash=flash, plain=plain, rows=True)\n"
+             "        return self._logits(x, rows=True)",
+             "flash=flash, plain=plain)\n        return self._logits(x)")
+
+#: Parts of a kernel knocked out for ``--ablate``: (source under csrc/, or
+#: a path under the package, text, replacement) edits, each of which must
+#: apply once.
 ABLATIONS = {
     # The stem tile's GEMM steps become an XOR of their operands: the A
     # loads and the B registers stay, the tensor-core work goes
@@ -272,7 +308,17 @@ ABLATIONS = {
          '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(r));',
          "  hi = lo = __float_as_uint(x);"),
     ],
+    "lm_ln32": [_LM_LN32],
+    "lm_attn32": [_LM_ATTN32],
+    "lm_readout32": [_LM_READOUT32],
+    "lm_f32": [_LM_LN32, _LM_ATTN32, _LM_READOUT32],
+    "lm_fwd32": [_LM_FWD32],
 }
+
+#: chip_smoke.py's serving LM (phase 11) and phase 13's request.
+LM_CFG = dict(vocab=256, d_model=512, n_heads=8, d_ff=1024, n_layers=4,
+              max_len=1024, sparsity=0.8, block=8)
+LM_PROMPT, LM_NEW, LM_BATCH = 640, 256, 8
 
 #: The pruned ResNet-18's 18 sparse convs at 224 x 224 after im2col, per
 #: image: (output pixels, K = C * k * k, N = output channels).
@@ -444,12 +490,115 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
             torch, lambda: ops.flash_attention(q, k, v, causal=True), iters))
         library[f"K5 BH {BH} T 640 causal"] = _time_ms(
             torch, lambda: sdpa(q, k, v, is_causal=True), iters)
+    for case, key, value in _lm_cases(torch, dev) if want("LM") else ():
+        print(json.dumps({"repo": repo, "case": case, key: value}),
+              flush=True)
     # ---- whole forwards ----
     if want("R18"):
         _r18_forwards(repo, iters, emit)
     if want("R50"):
         _r50_forward(iters, emit)
     print(json.dumps({"repo": repo, "library_ms": library}), flush=True)
+
+
+def _lm_cases(torch, dev):
+    """The LM case (see the module docstring): yields (case, "ms" or
+    "max_abs_err", value)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from resnet_accel_tpu_torch.models.lm import TransformerLMInt8
+    vocab = LM_CFG["vocab"]
+    lm = TransformerLMInt8.from_random(**LM_CFG, seed=0)
+    scales = lm.calibrate(np.random.default_rng(0).integers(
+        0, vocab, 16).astype(np.int32))
+    prng = np.random.default_rng(2)
+    prompt = prng.integers(0, vocab, LM_PROMPT).astype(np.int32)
+    prompts = prng.integers(0, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    fed = torch.as_tensor(prng.integers(0, vocab, 64), device=dev)
+    lmod = lm.module(dev)
+    sc = lmod.prepare_scales(scales)
+
+    def busy_ms(fn):
+        """The card's own time in one ``fn()`` under torch.profiler, as
+        ``chip_smoke.py``'s phase 13 sums it."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU) / 1e3
+
+    def clone(caches, lead=()):
+        return [dict(c, **{n: c[n].expand(*lead, *c[n].shape).clone()
+                           for n in ("k", "v")}) for c in caches]
+
+    with torch.inference_mode():
+        for toks, B in ((prompt, 1), (prompts, LM_BATCH)):
+            pre, dec = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last, caches = lmod.prefill(toks, sc, flash=True)
+                tok = last.argmax(dim=-1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(LM_NEW - 1):
+                    logits, caches = lmod.decode_step(caches, tok, sc)
+                    tok = logits.argmax(dim=-1)
+                torch.cuda.synchronize()
+                pre.append((t1 - t0) * 1e3)
+                dec.append((time.perf_counter() - t1) * 1e3 / (LM_NEW - 1))
+            yield f"LM prefill {LM_PROMPT} batch {B}", "ms", \
+                statistics.median(pre)
+            yield f"LM decode step batch {B}", "ms", statistics.median(dec)
+
+        last, caches = lmod.prefill(prompt, sc, flash=True)
+        busy_ms(lambda: lmod.prefill(prompt, sc, flash=True))   # warm-up
+        yield f"LM prefill {LM_PROMPT} batch 1 device busy", "ms", busy_ms(
+            lambda: lmod.prefill(prompt, sc, flash=True))
+        c1, c8, cv = clone(caches), clone(caches, (LM_BATCH,)), \
+            clone(caches)
+        tok = last.argmax(dim=-1)
+
+        def decode32():
+            nonlocal caches, tok
+            for _ in range(32):
+                logits, caches = lmod.decode_step(caches, tok, sc)
+                tok = logits.argmax(dim=-1)
+        yield "LM 32 decode steps batch 1 device busy", "ms", busy_ms(
+            decode32)
+
+        lone, err8 = [], 0.0
+        for t in fed:
+            l1, c1 = lmod.decode_step(c1, t, sc)
+            l8, c8 = lmod.decode_step(c8, t.expand(LM_BATCH), sc)
+            err8 = max(err8, float((l8 - l1).abs().max()))
+            lone.append(l1)
+        yield f"LM rows: {LM_BATCH} rows against a lone decode, 64 steps", \
+            "max_abs_err", err8
+        if hasattr(lmod, "verify_step"):
+            errv = 0.0
+            for w in range(0, len(fed), 16):
+                lv, cv = lmod.verify_step(cv, fed[w:w + 16], sc)
+                errv = max(errv, float(
+                    (lv - torch.stack(lone[w:w + 16])).abs().max()))
+            yield "LM rows: verify 16 against decode steps, 64 positions", \
+                "max_abs_err", errv
+        try:
+            from resnet_accel_tpu_torch.runtime.paged import PagedKVBatcher
+        except ImportError:                 # a checkout before the batchers
+            return
+        seq = prompt[:200]
+        lp = PagedKVBatcher(lm, scales, slots=2, page=16, pool_pages=32,
+                            device=dev).score([seq])[0]
+        want = torch.log_softmax(lmod.forward(seq, scales), -1)[
+            torch.arange(len(seq) - 1), torch.as_tensor(
+                seq[1:], device=dev).long()].cpu().numpy()
+        yield "LM score() against the teacher-forced forward, 200 tokens", \
+            "max_abs_err", float(np.abs(lp - want).max())
 
 
 def _r18_forwards(repo, iters, emit):
@@ -828,12 +977,13 @@ def _ablated(repo: str, name: str) -> str:
     shutil.copytree(pkg, os.path.join(root, "resnet_accel_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for src, old, new in ABLATIONS[name]:
-        path = os.path.join(root, "resnet_accel_tpu_torch", "csrc", src)
+        src = src if "/" in src else os.path.join("csrc", src)
+        path = os.path.join(root, "resnet_accel_tpu_torch", src)
         with open(path) as f:
             text = f.read()
         if text.count(old) != 1:
             raise SystemExit(f"kernel_ab: ablation {name} no longer applies "
-                             f"to csrc/{src}")
+                             f"to {src}")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     return root
@@ -898,6 +1048,9 @@ def _ablation_run(repo: str, iters: int, trunks, name: str,
                               "pair_ms": _time_ms(
                                   torch, lambda: (fn(), fn()), iters)}),
                   flush=True)
+    for case, key, value in _lm_cases(torch, dev) if want("LM") else ():
+        print(json.dumps({"ablation": name, "case": case, key: value}),
+              flush=True)
     for BH in (8, 64) if want("K5") else ():
         q, k, v = _k5_inputs(torch, dev, BH)
         err = (ops.flash_attention(q, k, v, causal=True)

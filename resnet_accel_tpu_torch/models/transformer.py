@@ -12,11 +12,33 @@ Counterpart of ``resnet_accel_tpu/models/transformer.py``::
   bit for bit.
 - ``TransformerBlockInt8Module`` is the block on a device: the full causal
   forward (einsum attention, or kernel K5 with ``flash=True``), the KV-cache
-  ``prefill`` and the one-token ``decode_step``.  Activations quantize to
-  int8 at each projection input, with static per-tap scales (Python floats,
+  ``prefill``, the one-token ``decode_step`` and the S-token
+  ``verify_step`` of speculative decoding.  Activations quantize to int8 at
+  each projection input, with static per-tap scales (Python floats,
   rounded once to float32) or, without them, one dynamic scale per
   sequence.  LayerNorm, softmax, GELU and the residuals are float32, with
-  TF32 off.  Every function takes leading batch dimensions.
+  TF32 off, but on the decode path (below).  Every function takes leading
+  batch dimensions.
+
+**Rows that do not depend on their neighbours.**  Greedy speculative
+decoding equals ``generate`` only if each row of a verify pass computes
+what one ``decode_step`` computes, and a batcher's slot what a lone
+request computes.  A float32 reduction does not promise that: cuBLAS picks
+its kernel, and PyTorch its reduction layout, from the number of rows, and
+each sums in its own order.  So every reduction of the decode path
+(``decode_step``, ``verify_step``, ``attend_mlp_multi``: the LayerNorm
+statistics, the attention logits, softmax and context, and the LM's
+readout) runs in float64 and is rounded once to float32; the helpers take
+``rows=True`` for it.  Float32 inputs give exact float64 products, and a
+float64 sum of a few thousand of them rounds to the same float32 value in
+any order unless it lies within about 2^-40 (relative) of a rounding
+boundary.  The projections are exact already (integer sums in float64).
+Masked positions add exact zeros, so a view padded to any length gives
+the same rows.  The LM's teacher-forced forward takes ``rows=True`` too:
+the paged engine's ``score()`` is held to it.  The parallel prefill keeps
+float32: ``generate``, ``sample`` and ``generate_speculative`` prefill a
+prompt through the same call at the same shape, and nothing else compares
+its rows.
 """
 
 from __future__ import annotations
@@ -209,8 +231,12 @@ class TransformerBlockInt8Module(nn.Module):
     inputs ``h1`` (Q, K, V), ``ctx`` (O), ``h2`` (W1) and ``mlp`` (W2): a
     dict of Python floats or of one-element float32 tensors on the device
     (see :meth:`prepare_scales`).  A KV cache is a dict ``k``, ``v``
-    ([..., max_len, d_model] float32) and ``len`` (a Python int); unlike the
-    JAX package's, it is updated in place."""
+    ([..., max_len, d_model] float32) and ``len``; unlike the JAX package's,
+    it is updated in place.  ``len`` is a Python int (one position for every
+    sequence, as ``generate`` and ``generate_speculative`` keep it) or an
+    int64 tensor of the leading shape (a position per sequence, as the
+    batchers keep it).  Tensor positions past the cache clamp, as the JAX
+    package's dynamic slices do: the rows they write are discarded."""
 
     def __init__(self, block: TransformerBlockInt8, device="cuda"):
         super().__init__()
@@ -244,10 +270,18 @@ class TransformerBlockInt8Module(nn.Module):
                 "v": torch.zeros(shape, device=self.device), "len": 0}
 
     @staticmethod
-    def _ln(v, gamma, beta):
-        mu = v.mean(dim=-1, keepdim=True)
-        var = v.var(dim=-1, keepdim=True, correction=0)
-        return (v - mu) * torch.rsqrt(var + LN_EPS) * gamma + beta
+    def _ln(v, gamma, beta, rows: bool = False):
+        """LayerNorm over the last axis; with ``rows``, its mean and
+        variance summed in float64 and rounded once to float32."""
+        if not rows:
+            mu = v.mean(dim=-1, keepdim=True)
+            var = v.var(dim=-1, keepdim=True, correction=0)
+            return (v - mu) * torch.rsqrt(var + LN_EPS) * gamma + beta
+        v64 = v.to(torch.float64)
+        mu = v64.mean(dim=-1, keepdim=True)
+        var = (v64 - mu).square().mean(dim=-1, keepdim=True)
+        return ((v - mu.to(torch.float32))
+                * torch.rsqrt(var.to(torch.float32) + LN_EPS) * gamma + beta)
 
     @staticmethod
     def _quant(v, s):
@@ -270,8 +304,8 @@ class TransformerBlockInt8Module(nn.Module):
     def _proj_tap(self, p: PackedProjection, v, scales, tap):
         return p.project(*self._quant_tap(v, scales, tap))
 
-    def _mlp(self, x, scales):
-        h = self._ln(x, self.ln2_g, self.ln2_b)
+    def _mlp(self, x, scales, rows: bool = False):
+        h = self._ln(x, self.ln2_g, self.ln2_b, rows)
         m = F.gelu(self._proj_tap(self.w1, h, scales, "h2"),
                    approximate="tanh")
         return x + self._proj_tap(self.w2, m, scales, "mlp")
@@ -282,59 +316,114 @@ class TransformerBlockInt8Module(nn.Module):
         return t.reshape(*lead, T, self.n_heads,
                          D // self.n_heads).transpose(-3, -2)
 
+    def _attend(self, q, k, v, mask=None, rows: bool = False):
+        """softmax(q k^T / sqrt(dh)) v over heads [..., H, S, dh] against
+        [..., H, L, dh] -> [..., H, S, dh]; with ``rows``, in float64 and
+        rounded once to float32.  ``mask`` [..., S, L]: the positions each
+        row may attend."""
+        if not rows:
+            logits = torch.matmul(q, k.transpose(-1, -2)) / self._sqrt_dh
+            if mask is not None:
+                logits = logits.masked_fill(~mask.unsqueeze(-3),
+                                            float("-inf"))
+            return torch.matmul(torch.softmax(logits, dim=-1), v)
+        f64 = torch.float64
+        logits = torch.matmul(q.to(f64), k.to(f64).transpose(-1, -2)) \
+            / self._sqrt_dh
+        if mask is not None:
+            logits = logits.masked_fill(~mask.unsqueeze(-3), float("-inf"))
+        return torch.matmul(torch.softmax(logits, dim=-1),
+                            v.to(f64)).to(torch.float32)
+
+    def _write(self, cache: Dict, k, v) -> None:
+        """Write the K and V rows [..., S, d_model] at ``cache["len"]``:
+        a slice where it is an int, each sequence's own rows where it is a
+        tensor."""
+        pos = cache["len"]
+        S, L = k.shape[-2], cache["k"].shape[-2]
+        if isinstance(pos, int):
+            if pos + S > L:
+                raise ValueError(f"KV cache full: positions {pos}.."
+                                 f"{pos + S - 1} exceed max_len {L}")
+            cache["k"][..., pos:pos + S, :] = k
+            cache["v"][..., pos:pos + S, :] = v
+            return
+        rows = (pos[..., None] + torch.arange(S, device=pos.device)).clamp(
+            max=L - 1).reshape(-1, S)
+        seq = torch.arange(rows.shape[0], device=rows.device)[:, None]
+        for name, t in (("k", k), ("v", v)):
+            c = cache[name]
+            c.view(-1, L, c.shape[-1])[seq, rows] = t.reshape(
+                -1, S, t.shape[-1])
+
     # ------------------------------------------------- KV-cache decoding
-    def qkv_project(self, x_t: torch.Tensor, scales: Optional[Dict]):
+    def qkv_project(self, x_t: torch.Tensor, scales: Optional[Dict],
+                    rows: bool = False):
         """LN1 and the Q, K, V projections, row-wise: [..., S, d_model] ->
-        three [..., S, d_model] (dynamic scales when ``scales`` is None).
-        The three share one quantization of the LN output, as they share
-        its scale."""
+        three [..., S, d_model] (dynamic scales when ``scales`` is None;
+        ``rows``: the decode path's float64 LN statistics).  The three
+        share one quantization of the LN output, as they share its
+        scale."""
         if scales is not None:
             scales = self.prepare_scales(scales)
-        h = self._ln(x_t, self.ln1_g, self.ln1_b)
+        h = self._ln(x_t, self.ln1_g, self.ln1_b, rows)
         hq, s = self._quant_tap(h, scales, "h1")
         return tuple(p.project(hq, s) for p in (self.wq, self.wk, self.wv))
 
-    def attend_mlp(self, x_t, q_t, k_all, v_all, pos: int,
-                   scales: Dict) -> torch.Tensor:
-        """Attention of one row over a K/V view [..., L, d_model]
-        (positions > ``pos`` masked; ``pos`` holds this token's K/V), the
-        output projection and the MLP.  x_t, q_t: [..., 1, d_model]."""
+    def attend_mlp_multi(self, x_s, q_s, k_all, v_all, pos,
+                         scales: Dict) -> torch.Tensor:
+        """Causal attention of S rows [..., S, d_model] over a K/V view
+        [..., L, d_model] (row i masks the positions past ``pos + i``;
+        positions pos..pos+S-1 hold the rows' own K/V), the output
+        projection and the MLP.  ``pos`` is an int or a tensor of the lead
+        shape: a contiguous cache, or the paged engine's gathered view."""
         scales = self.prepare_scales(scales)
-        qh, kh, vh = self._heads(q_t), self._heads(k_all), self._heads(v_all)
-        logits = torch.matmul(qh, kh.transpose(-1, -2))[..., 0, :] \
-            / self._sqrt_dh                                  # [..., H, L]
-        L = k_all.shape[-2]
-        mask = torch.arange(L, device=self.device) <= pos
-        logits = logits.masked_fill(~mask, float("-inf"))
-        attn = torch.softmax(logits, dim=-1)
-        ctx = torch.matmul(attn.unsqueeze(-2), vh)          # [..., H, 1, dh]
-        ctx = ctx.transpose(-3, -2).reshape(x_t.shape)
-        x_t = x_t + self._proj_tap(self.wo, ctx, scales, "ctx")
-        return self._mlp(x_t, scales)
+        S, L = x_s.shape[-2], k_all.shape[-2]
+        cols = torch.arange(L, device=self.device)
+        if isinstance(pos, int):
+            mask = cols <= (pos + torch.arange(S, device=self.device))[:, None]
+        else:
+            mask = cols <= (pos[..., None]
+                            + torch.arange(S, device=self.device))[..., None]
+        ctx = self._attend(self._heads(q_s), self._heads(k_all),
+                           self._heads(v_all), mask, rows=True)
+        ctx = ctx.transpose(-3, -2).reshape(x_s.shape)
+        x_s = x_s + self._proj_tap(self.wo, ctx, scales, "ctx")
+        return self._mlp(x_s, scales, rows=True)
 
     def decode_step(self, cache: Dict, x_t: torch.Tensor, scales: Dict):
         """One-token causal decode through the cache: x_t [..., 1,
         d_model] -> (y_t [..., 1, d_model], the cache with this token's K/V
-        written at position ``len`` and ``len`` advanced by one)."""
+        written at position ``len`` and ``len`` advanced by one).  The S = 1
+        case of :meth:`verify_step`, so that a decode step and a row of a
+        verify pass are one computation."""
+        return self.verify_step(cache, x_t, scales)
+
+    def verify_step(self, cache: Dict, x_s: torch.Tensor, scales: Dict):
+        """S tokens [..., S, d_model] at positions len..len+S-1, attending
+        the cache and each other causally: the verify pass of speculative
+        decoding, one batched product per projection where S decode steps
+        would issue S.  Returns (y [..., S, d_model], the cache with ``len``
+        advanced by S); a caller that rejects drafts rolls ``len`` back, and
+        the stale rows above it are masked by position and overwritten by
+        the next write."""
         scales = self.prepare_scales(scales)
-        q_t, k_t, v_t = self.qkv_project(x_t, scales)
+        q, k, v = self.qkv_project(x_s, scales, rows=True)
+        self._write(cache, k, v)
         pos = cache["len"]
-        if pos >= cache["k"].shape[-2]:
-            raise ValueError(f"KV cache full: position {pos} exceeds "
-                             f"max_len {cache['k'].shape[-2]}")
-        cache["k"][..., pos:pos + 1, :] = k_t
-        cache["v"][..., pos:pos + 1, :] = v_t
-        cache = {"k": cache["k"], "v": cache["v"], "len": pos + 1}
-        return self.attend_mlp(x_t, q_t, cache["k"], cache["v"], pos,
-                               scales), cache
+        cache = {"k": cache["k"], "v": cache["v"],
+                 "len": pos + x_s.shape[-2]}
+        return self.attend_mlp_multi(x_s, q, cache["k"], cache["v"], pos,
+                                     scales), cache
 
     # ------------------------------------------------------ full forward
     def forward(self, x: torch.Tensor, causal: bool = False,
                 scales: Optional[Dict] = None, flash: bool = False,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, rows: bool = False) -> torch.Tensor:
         """[..., T, d_model] float32 -> [..., T, d_model].  ``flash`` routes
-        attention through K5 (``plain`` through its plain version)."""
-        return self._forward_kv(x, causal, scales, flash, plain)[0]
+        attention through K5 (``plain`` through its plain version);
+        ``rows``: the decode path's float64 reductions."""
+        return self._forward_kv(x, causal, scales, flash, plain, rows)[0]
 
     def prefill(self, x: torch.Tensor, scales: Dict, cache: Dict,
                 flash: bool = False, plain: bool = False):
@@ -347,11 +436,12 @@ class TransformerBlockInt8Module(nn.Module):
         cache["v"][..., :T, :] = v_flat
         return y, {"k": cache["k"], "v": cache["v"], "len": T}
 
-    def _forward_kv(self, x, causal, scales, flash, plain=False):
+    def _forward_kv(self, x, causal, scales, flash, plain=False,
+                    rows=False):
         """Shared body: returns (y, k_flat, v_flat), each [..., T, D]."""
         if scales is not None:
             scales = self.prepare_scales(scales)
-        q, k_flat, v_flat = self.qkv_project(x, scales)
+        q, k_flat, v_flat = self.qkv_project(x, scales, rows)
         qh, kh, vh = self._heads(q), self._heads(k_flat), self._heads(v_flat)
         T = x.shape[-2]
         if flash:
@@ -361,12 +451,10 @@ class TransformerBlockInt8Module(nn.Module):
                               for t in (qh, kh, vh)),
                             causal=causal).reshape(qh.shape)
         else:
-            logits = torch.matmul(qh, kh.transpose(-1, -2)) / self._sqrt_dh
-            if causal:
-                mask = torch.ones((T, T), dtype=torch.bool,
-                                  device=self.device).tril()
-                logits = logits.masked_fill(~mask, float("-inf"))
-            ctx = torch.matmul(torch.softmax(logits, dim=-1), vh)
+            mask = (torch.ones((T, T), dtype=torch.bool,
+                               device=self.device).tril()
+                    if causal else None)
+            ctx = self._attend(qh, kh, vh, mask, rows)
         ctx = ctx.transpose(-3, -2).reshape(x.shape)
         x = x + self._proj_tap(self.wo, ctx, scales, "ctx")
-        return self._mlp(x, scales), k_flat, v_flat
+        return self._mlp(x, scales, rows), k_flat, v_flat

@@ -1,4 +1,5 @@
-"""Runtime: device seam, inference engine, performance metrics.
+"""Runtime: device seam, inference engine, LM serving (the continuous and
+the paged-KV batchers), performance metrics.
 
 The names below are loaded from their modules at first use, so that the
 models, which import ``runtime.backend``, and ``runtime.engine``, which
@@ -25,6 +26,8 @@ _EXPORTS = {
     "PLATFORMS": "perf",
     "get_platform": "perf",
     "trace_profile": "perf",
+    "ContinuousBatcher": "serving",
+    "PagedKVBatcher": "paged",
 }
 
 __all__ = list(_EXPORTS)

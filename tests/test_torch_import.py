@@ -36,6 +36,9 @@ def test_import_leaves_jax_out():
             "import resnet_accel_tpu_torch.models.attention\n"
             "import resnet_accel_tpu_torch.checkpoint\n"
             "import resnet_accel_tpu_torch.quant\n"
+            "import resnet_accel_tpu_torch.models.sampling\n"
+            "import resnet_accel_tpu_torch.runtime.serving\n"
+            "import resnet_accel_tpu_torch.runtime.paged\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'resnet_accel_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'resnet_accel_tpu.')))\n"
