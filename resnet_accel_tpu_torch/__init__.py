@@ -20,6 +20,10 @@ the JAX package.
 - ``native``   -- ctypes binding of the repo's native host library
                   (``native/``, built by g++ at first use): goldens, the
                   BSR packer and the threaded int8 ``BatchLoader``.
+- ``train``    -- training through torch.autograd: the MNIST CNN, the
+                  ResNet family and the decoder LM, block pruning, QAT and
+                  npz checkpoints.
+- ``utils``    -- the MNIST IDX reader and a seeded synthetic split.
 - ``quant``    -- per-channel int8 weight quantization (numpy).
 - ``_kernels`` -- builds ``csrc/*.cu`` with nvcc at first CUDA use and
                   launches the kernels through ctypes.

@@ -1,7 +1,8 @@
 """Float checkpoints as the JAX package writes them: one ``.npz`` of named
 arrays (``conv1.weight``, ``fc1.bias``, ...), the input of the CLI's
 ``quantize``.  Counterpart of ``load_checkpoint`` in
-``resnet_accel_tpu/train/mnist.py``; training is not ported yet."""
+``resnet_accel_tpu/train/mnist.py``; ``train.mnist.save_checkpoint``
+writes them."""
 
 from __future__ import annotations
 

@@ -3,6 +3,8 @@
     infer     run INT8 inference (a ResNet of the family -- 18, 34, 50,
               101 or 152 -- or the MNIST CNN) on an .npy array of images
     test      run the port's own tests (tests/test_torch_*.py)
+    train     train the MNIST CNN on an IDX split, with --prune its
+              progressive block pruning, into an FP32 checkpoint (.npz)
     bench     dense-vs-sparse GEMM sweep through the zero-skip kernel, with
               --conv the zero-skip conv against the dense conv, or with
               --artifact DIR one exported BSR layer's batch-1 matvec
@@ -20,11 +22,12 @@
               each layer's device time from a torch.profiler trace beside
               its roofline bound
 
-``infer``, ``bench``, ``generate``, ``serve`` and ``profile`` run on the
-card unless ``--device cpu`` asks for the CPU; ``quantize``, ``export``,
-``sim``, ``verify`` and ``fixtures`` are numpy on the host.  The artifact
-flow:
+``infer``, ``bench``, ``train``, ``generate``, ``serve`` and ``profile``
+run on the card unless ``--device cpu`` asks for the CPU; ``quantize``,
+``export``, ``sim``, ``verify`` and ``fixtures`` are numpy on the host.
+The artifact flow:
 
+    train --data mnist_raw/ --prune --output ck.npz
     quantize --checkpoint ck.npz --output int8/
     export --weights int8/fc1_weight_int8.npy --output fc1/ --name fc1
     sim --artifact fc1/ --output golden.npy
@@ -390,6 +393,43 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Train the MNIST CNN on an IDX split (Adam), optionally prune it
+    progressively (fc1 at 128 x 128 blocks, fc2 at 8 x 8, the group lasso
+    in each fine-tune), and save the npz checkpoint ``quantize`` reads."""
+    from resnet_accel_tpu_torch.train import save_checkpoint, train_mnist
+    from resnet_accel_tpu_torch.utils.mnist_data import load_mnist_split
+
+    imgs, labels = load_mnist_split(args.data, args.split)
+    res = train_mnist(imgs, labels, epochs=args.epochs,
+                      batch_size=args.batch_size, lr=args.lr,
+                      seed=args.seed, device=args.device)
+    print(f"best eval acc: {res.best_acc:.4f}")
+    if args.prune:
+        from resnet_accel_tpu_torch.train import (
+            BlockCfg, progressive_prune, sparsity_of_masks)
+        cfgs = {"fc1.weight": BlockCfg(128, 128, 0.05),
+                "fc2.weight": BlockCfg(8, 8, 0.05)}
+
+        def finetune(params, mask_fn, reg_fn):
+            r = train_mnist(imgs, labels, epochs=1,
+                            batch_size=args.batch_size, seed=args.seed,
+                            mask_fn=mask_fn, reg_fn=reg_fn, params=params,
+                            device=args.device)
+            print(f"  finetune acc: {r.best_acc:.4f}")
+            return r.params
+
+        pruned, masks = progressive_prune(
+            res.params, finetune, cfgs,
+            schedule=[float(s) for s in args.schedule.split(",")])
+        res.params.update(pruned)
+        print(f"final block sparsity: {sparsity_of_masks(masks):.1%}")
+    if args.output:
+        save_checkpoint(res, args.output)
+        print(f"saved checkpoint to {args.output}")
+    return 0
+
+
 def cmd_quantize(args) -> int:
     """An FP32 checkpoint (``{layer}.weight`` / ``{layer}.bias`` arrays)
     quantized: per layer ``{layer}_{kind}_int8.npy`` beside
@@ -714,6 +754,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "none)")
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_bench)
+
+    ptr = sub.add_parser("train", help="train the MNIST CNN")
+    ptr.add_argument("--data", required=True,
+                     help="directory of the MNIST IDX files (plain or .gz)")
+    ptr.add_argument("--split", default="t10k")
+    ptr.add_argument("--epochs", type=int, default=2)
+    ptr.add_argument("--batch-size", type=int, default=128)
+    ptr.add_argument("--lr", type=float, default=1e-3)
+    ptr.add_argument("--seed", type=int, default=1917)
+    ptr.add_argument("--prune", action="store_true")
+    ptr.add_argument("--schedule", default="0.5,0.7,0.85,0.9")
+    ptr.add_argument("--output", default=None)
+    ptr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ptr.set_defaults(fn=cmd_train)
 
     pq = sub.add_parser("quantize", help="FP32 checkpoint -> INT8")
     pq.add_argument("--checkpoint", required=True)

@@ -39,9 +39,12 @@ def test_import_leaves_jax_out():
             "import resnet_accel_tpu_torch.models.sampling\n"
             "import resnet_accel_tpu_torch.runtime.serving\n"
             "import resnet_accel_tpu_torch.runtime.paged\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', "
-            "'resnet_accel_tpu') or m.startswith(('jax.', 'jaxlib', "
-            "'resnet_accel_tpu.')))\n"
+            "import resnet_accel_tpu_torch.train\n"
+            "import resnet_accel_tpu_torch.train.lm\n"
+            "import resnet_accel_tpu_torch.utils.mnist_data\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'optax', "
+            "'orbax', 'resnet_accel_tpu') or m.startswith(('jax.', "
+            "'jaxlib', 'optax.', 'orbax.', 'resnet_accel_tpu.')))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -50,8 +53,8 @@ def test_import_leaves_jax_out():
 
 
 def test_no_jax_import_in_sources():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|resnet_accel_tpu)\b",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|orbax|"
+                     r"resnet_accel_tpu)\b", re.M)
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
             if f.endswith(".py"):
