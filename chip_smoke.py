@@ -11,7 +11,9 @@ with K5 in its prefill, the continuous and paged-KV batchers, ``score``
 and the CLI's ``serve``; and training on the card (torch.autograd): a
 ResNet-18 trained, pruned and quantization-aware fine-tuned at ImageNet
 geometry, the serving LM trained on the cyclic language and the MNIST CNN
-through the CLI's ``train``, each then served through the kernels.
+through the CLI's ``train``, each then served through the kernels; and
+the parallel programs (``resnet_accel_tpu_torch/parallel``) in spawned
+ranks that share the card over gloo, with a world of one NCCL rank.
 
     python3 chip_smoke.py
 
@@ -272,11 +274,37 @@ result line) without them.  Phases, each fatal on failure:
    -> ``with_fc1_bsr(128)`` served, counts reset just before: K2, K3 and
    K4 must launch (K3, K4 on ``wgmma_tma``), the logits bit-identical to
    the plain path; ``CheckpointManager`` keeps the newest two of three.
+31. Parallelism (``resnet_accel_tpu_torch/parallel``, ``launch.run_world``):
+   one world of four ranks spawned on ``cuda:0`` over gloo (the card's
+   machine has one card and NCCL takes a card a rank), which runs in turn:
+   ``make_data_parallel_forward`` of the phase-3 ResNet-18 and of the
+   phase-8 sparse ResNet-18 on batch 0 (32 images a rank through K1, K2,
+   K3 and, sparse, K4 in every rank, counts reset just before; the
+   all-gathered logits bit-identical to the single-rank engine's; the
+   rank's forward timed by CUDA events, the whole program by the host
+   clock); the dp BSR GEMM (M 512 over the ranks, N = K = 2048, 128 x 128
+   blocks at 0.9: K4 in every rank, bit-identical to the golden and to K4
+   on one rank); ``PagedKVBatcher(tp_mesh=dp 2 x tp 2)`` with int8 KV and
+   spec_draft 7 on phase 11's LM, eight 640-token requests, 64 new each
+   (streams equal the single-rank int8 engine's); ``make_tp_lm_generate(
+   batched=True)`` on (dp 2, tp 2), four of the prompts 640 -> 64 (tokens
+   equal ``generate(parallel_prefill=False)``'s); sp 4 on the LM's first
+   block at T 640 (within 2e-3 of the block on one rank); ep 4 on
+   ``MoEBlockInt8.from_random(n_experts=4)`` (bit for bit); the MNIST
+   pipeline and ``combined`` on (dp 1, pp 2, tp 2) (within 1e-4 of the
+   unsharded forward) and one ``combined`` Adam step (its loss within
+   1e-5); the dry run of every program.  Then a world of one NCCL rank
+   (the tp 1 paged engine, streams equal ``generate``'s), ``serve --tp 2``
+   refused over NCCL on one card, and ``serve --tp 2 --dist-backend gloo
+   --spec-draft 7`` (a world of its own: its streams equal the single-rank
+   engine's).  Each world prints its backend and devices; a failing rank
+   fails the phase.  Prints K1-K4's launches summed over the ranks, which
+   the kernels line adds.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
 the served paths, phase 24's stream, phase 28's ``bench --artifact`` (its
-CUDA graphs' replays counted by hand), phase 29's decoders and phase 30's
-served models included; ms
+CUDA graphs' replays counted by hand), phase 29's decoders, phase 30's
+served models and phase 31's ranks included; ms
 the kernel's time summed over the shapes of the paths walked: ResNet-18
 and ResNet-50 for K1-K3, the sparse ResNet-18 for K4, ResNet-50 for K7,
 the four layers of one prompt's prefill for K5, the sweep's four cases
@@ -885,6 +913,266 @@ def train_phase(repo: str, dev, label: str, _kernels) -> dict:
     print(f"phase 30 (training on the card): {time.perf_counter() - t30:.1f}"
           f" s")
     return launches
+
+
+#: Phase 31: the ranks of one world share the card over gloo.
+PAR_WORLD = 4
+#: The dp BSR GEMM at the bench sweep's size: M rows split over the ranks.
+PAR_GEMM = dict(M=512, N=2048, K=2048, block=128, sparsity=0.9)
+
+
+def parallel_phase(dev, label, _kernels, model, sparse, xb, logits,
+                   slogits, lm, lm_scales, lm_args, prompts, ref,
+                   nccl: bool = True) -> dict:
+    """Phase 31: the parallel programs in spawned ranks sharing the card.
+    Returns the launch counts of the data-parallel served paths, summed
+    over the ranks."""
+    import contextlib as _ctx
+    from resnet_accel_tpu_torch import cli
+    from resnet_accel_tpu_torch.golden import bsr_matmul_int8_wt
+    from resnet_accel_tpu_torch.models.moe import MoEBlockInt8
+    from resnet_accel_tpu_torch.models.transformer import \
+        TransformerBlockInt8Module
+    from resnet_accel_tpu_torch.ops import bsr_matmul_wt, pack_bsr
+    from resnet_accel_tpu_torch.parallel import jobs
+    from resnet_accel_tpu_torch.parallel.dryrun import _dryrun_body
+    from resnet_accel_tpu_torch.parallel.launch import run_world
+    from resnet_accel_tpu_torch.runtime import PagedKVBatcher
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    from resnet_accel_tpu_torch.train.mnist import (init_mnist_params,
+                                                    mnist_forward_fp32)
+    t31 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    n_new = ref.shape[1]
+    n_req, T = prompts.shape
+    rng = np.random.default_rng(SEED + 31)
+
+    # the references, in this process: the dp GEMM's golden and K4 on one
+    # rank; the int8 paged engine on one rank; the sp block, the MoE and
+    # the MNIST CNN unsharded
+    g = PAR_GEMM
+    W = rng.integers(-128, 128, (g["N"], g["K"])).astype(np.int8)
+    nb = -(-g["N"] // g["block"])
+    keep = np.repeat(np.repeat(rng.random((nb, nb)) >= g["sparsity"],
+                               g["block"], 0), g["block"], 1)
+    bsr = build_bsr_int8_direct(W * keep[:g["N"], :g["K"]], g["block"])
+    A = rng.integers(-128, 128, (g["M"], g["K"])).astype(np.int8)
+    gemm_golden = bsr_matmul_int8_wt(A, bsr.data, bsr.row_ptr, bsr.col_idx,
+                                     g["block"], g["block"], N=g["N"])
+    with torch.inference_mode():
+        gemm_one = bsr_matmul_wt(torch.from_numpy(A).to(dev),
+                                 pack_bsr(bsr, dev)).cpu().numpy()
+    if not np.array_equal(gemm_one, gemm_golden):
+        fail("K4 on one rank differs from the golden at the dp GEMM")
+    pool = 1 + n_req * -(-(T + n_new + 7) // 16)
+    engine = dict(slots=n_req, page=16, pool_pages=pool, spec_draft=7)
+    reqs = [[(p.tolist(), n_new, 0) for p in prompts]]
+    eng = PagedKVBatcher(lm, lm_scales, kv_dtype="int8", device=dev,
+                         **engine)
+    rids = [eng.submit(p, n, seed=sd) for p, n, sd in reqs[0]]
+    res = eng.run()
+    int8_ref = [res[r] for r in rids]
+    block = lm.blocks[0]
+    sp_x = rng.normal(0, 1, (T, block.d_model)).astype(np.float32)
+    moe = MoEBlockInt8.from_random(n_experts=4, seed=SEED)
+    ep_x = rng.normal(0, 1, (T, 128)).astype(np.float32)
+    mn = init_mnist_params(seed=SEED)
+    c_x = rng.normal(0, 1, (8, 1, 28, 28)).astype(np.float32)
+    c_y = rng.integers(0, 10, 8).astype(np.int32)
+    with torch.inference_mode():
+        sp_ref = TransformerBlockInt8Module(block, dev)(
+            torch.from_numpy(sp_x).to(dev)).cpu().numpy()
+        ep_ref = moe.module(dev)(ep_x).cpu().numpy()
+        p_dev = {k: torch.from_numpy(v).to(dev) for k, v in mn.items()}
+        c_ref = mnist_forward_fp32(p_dev, torch.from_numpy(c_x).to(
+            dev)).cpu()
+        c_loss = float(torch.nn.functional.cross_entropy(
+            c_ref, torch.from_numpy(c_y).long()))
+        c_ref = c_ref.numpy()
+    print(f"phase 31 references on one rank: {time.perf_counter() - t31:.1f}"
+          f" s")
+
+    # ---- 31.1 one world of PAR_WORLD ranks sharing the card, over gloo
+    cube = {"dp": 1, "pp": 2, "tp": 2}
+    job_list = [
+        ("world", jobs.world_info, ()),
+        ("dp_resnet", jobs.dp_forward, (model, xb, None, 5)),
+        ("dp_sparse", jobs.dp_forward, (sparse, xb)),
+        ("dp_bsr", jobs.dp_bsr, (bsr, A)),
+        ("paged_int8", jobs.paged_tp, ({"dp": 2, "tp": 2}, lm, lm_scales,
+                                       reqs, {**engine, "kv_dtype": "int8"})),
+        ("gen_batched", jobs.tp_generate, ({"dp": 2, "tp": 2}, lm,
+                                           lm_scales, prompts[:4], n_new,
+                                           True)),
+        ("sp", jobs.sp_forward, ({"sp": PAR_WORLD}, block, sp_x)),
+        ("ep", jobs.ep_forward, ({"ep": PAR_WORLD}, moe, ep_x)),
+        ("pp", jobs.pipeline_forward, (cube, "mnist", mn, 2, 4, c_x)),
+        ("combined", jobs.combined_forward, (cube, mn, c_x)),
+        ("combined_step", jobs.combined_train, (cube, mn, c_x, c_y, 1)),
+        ("dryrun", _dryrun_body, ()),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_world(jobs.run_jobs, PAR_WORLD, device=dev, backend="gloo",
+                      args=(dev.type, job_list), timeout_s=600)
+    print(f"world of {PAR_WORLD} ranks: {time.perf_counter() - t0:.1f} s, "
+          f"spawn and every job included; each job's seconds on rank 0: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ranks[0]["seconds"].items()))
+    infos = [r["world"] for r in ranks]
+    print(f"world: {[(i['rank'], i['backend'], i['device']) for i in infos]}")
+    if {i["backend"] for i in infos} != {"gloo"} or \
+            {i["device"] for i in infos} != {str(dev)}:
+        fail(f"the world's ranks are not gloo on {dev}: {infos}")
+
+    def agreed(key):
+        vals = [r[key] for r in ranks if r[key] is not None]
+        for v in vals[1:]:
+            for a, b in zip(_leaves(v), _leaves(vals[0])):
+                if not np.array_equal(np.asarray(a), np.asarray(b)):
+                    fail(f"{key}: the ranks disagree")
+        return vals[0]
+
+    launches = dict.fromkeys(_kernels.KERNELS, 0)
+    for key, want, must in (
+            ("dp_resnet", logits, ("stem_fused", "conv_int8", "matmul_int8")),
+            ("dp_sparse", slogits, ("stem_fused", "conv_int8", "matmul_int8",
+                                    "bsr_matmul")),
+            ("dp_bsr", gemm_golden, ("bsr_matmul",))):
+        out = agreed(key)
+        got = out["logits"] if "logits" in out else out["out"]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"{key}: differs from the single-rank port "
+                 f"{'and the golden ' if key == 'dp_bsr' else ''}"
+                 f"(max |err| {np.abs(got.astype(np.float64) - want).max()})")
+        for r, res in enumerate(ranks):
+            counts = res[key]["counts"]
+            if counts is None:          # the CPU's plain versions count none
+                if dev.type == "cuda":
+                    fail(f"{key}: rank {r} returned no launch counts")
+                continue
+            for k in must:
+                if counts["launches"][k] == 0:
+                    fail(f"{key}: {k} never launched in rank {r}")
+            for k, n in counts["launches"].items():
+                launches[k] += n
+        print(f"{key}: {got.shape} bit-identical to the single-rank port"
+              f"{' and the golden' if key == 'dp_bsr' else ''}; launches by "
+              f"rank: {[(res[key]['counts'] or {}).get('launches') for res in ranks]}")
+    d = agreed("dp_resnet")
+    if "ms_rank" in d:
+        print(f"dp ResNet-18, batch {len(xb)} over {PAR_WORLD} ranks on one "
+              f"card: {d['rows']} images a rank, the rank's forward "
+              f"{d['ms_rank']:.3f} ms (median, CUDA events; ranks "
+              f"{[round(r['dp_resnet']['ms_rank'], 3) for r in ranks]}), "
+              f"the whole program with its all-gather {d['ms_whole']:.3f} ms"
+              f" (host clock); {PAR_WORLD} ranks sharing one card over gloo,"
+              f" not scaling  ({label})")
+
+    p8 = agreed("paged_int8")
+    if p8["streams"][0] != int8_ref:
+        fail("tp 2 int8-KV paged streams differ from the single-rank int8 "
+             "engine's")
+    n_tok = sum(map(len, int8_ref))
+    print(f"PagedKVBatcher(tp_mesh=dp2 x tp2), int8 KV, spec_draft 7: "
+          f"{n_req} requests, {T} -> {n_new}: streams equal the single-rank "
+          f"int8 engine's; rank-local pool {p8['slice']}, {n_tok} tokens, "
+          f"{n_tok / p8['seconds']:.1f} tokens/s (host clock; 4 ranks "
+          f"sharing one card over gloo)  ({label})")
+    got = agreed("gen_batched")
+    if not np.array_equal(got, ref[:4]):
+        fail("make_tp_lm_generate(batched) on dp 2 x tp 2: tokens differ "
+             "from generate(parallel_prefill=False)'s")
+    sec = ranks[0]["seconds"]["gen_batched"]
+    print(f"make_tp_lm_generate(batched=True) on dp 2 x tp 2, {T} -> "
+          f"{n_new}: tokens {got.shape} equal generate(parallel_prefill="
+          f"False)'s; {got.size / sec:.1f} tokens/s (host clock, setup "
+          f"included; {PAR_WORLD} ranks sharing one card over gloo)  "
+          f"({label})")
+    for key, want, tol in (("sp", sp_ref, 2e-3), ("ep", ep_ref, 0.0),
+                           ("pp", c_ref, 1e-4), ("combined", c_ref, 1e-4)):
+        got = agreed(key)
+        err = max_abs_err(torch.from_numpy(np.asarray(got)),
+                          torch.from_numpy(want))
+        if got.shape != want.shape or not err <= tol:
+            fail(f"{key}: off the single-rank forward by {err} (> {tol})")
+        print(f"{key}: {got.shape}, max |err| vs the single-rank forward "
+              f"{err:.3g} (within {tol}); {ranks[0]['seconds'][key]:.2f} s "
+              f"(host clock)")
+    step = agreed("combined_step")
+    if not abs(step["losses"][0] - c_loss) <= 1e-5 * abs(c_loss):
+        fail(f"combined Adam step: loss {step['losses'][0]} vs the "
+             f"unsharded {c_loss}")
+    print(f"combined dp1 x pp2 x tp2 Adam step: loss {step['losses'][0]:.6f}"
+          f" (unsharded {c_loss:.6f})")
+    print(agreed("dryrun"))
+
+    # ---- 31.2 the NCCL build: a world of one rank, tp 1 paged programs
+    if nccl:
+        t0 = time.perf_counter()
+        one = run_world(jobs.run_jobs, 1, device=dev, backend="nccl",
+                        args=(dev.type, [
+                            ("world", jobs.world_info, ()),
+                            ("paged", jobs.paged_tp, ({"tp": 1}, lm,
+                                                      lm_scales, reqs,
+                                                      engine))]),
+                        timeout_s=300)[0]
+        if one["world"]["backend"] != "nccl" or \
+                one["paged"]["streams"][0] != [r.tolist() for r in
+                                               ref[:n_req]]:
+            fail(f"the NCCL world: {one['world']}, streams differ from "
+                 "generate's")
+        print(f"NCCL world of 1 rank ({one['world']}): tp 1 paged engine, "
+              f"spec_draft 7, streams equal generate's; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 31.3 serve --tp 2 (a world of its own), and its refusal over
+    # NCCL with fewer cards than ranks
+    args = ["serve", "--prompts", ";".join(",".join(map(str, p.tolist()))
+                                          for p in prompts),
+            "--n-new", str(n_new), "--slots", str(n_req), "--page", "16",
+            "--pool-pages", str(pool), "--spec-draft", "7", "--tp", "2",
+            *lm_args]
+    if dev.type == "cuda" and torch.cuda.device_count() < 2:
+        try:
+            cli.main(args)
+        except SystemExit as e:
+            if str(e) != "--tp 2 needs 2 devices, have 1":
+                fail(f"serve --tp 2 over nccl: {e}")
+            print(f"serve --tp 2 over nccl on one card refused: {e}")
+        else:
+            fail("serve --tp 2 over nccl ran on one card")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _ctx.redirect_stdout(buf):
+        rc = cli.main(args + ["--dist-backend", "gloo"])
+    out = buf.getvalue().splitlines()
+    print("\n".join(ln[:160] for ln in out))
+    want = [f"-> {r.tolist()}" for r in ref[:n_req]]
+    reqs_out = [ln for ln in out if ln.startswith("req ")]
+    if rc != 0 or len(reqs_out) != n_req or not all(
+            ln.endswith(w) for ln, w in zip(reqs_out, want)) or \
+            not out[-1].endswith("tp=2 (KV sliced by head)"):
+        fail("serve --tp 2: streams differ from the single-rank engine's")
+    print(f"serve --tp 2 over gloo: {n_req} streams equal the single-rank "
+          f"PagedKVBatcher's; {time.perf_counter() - t0:.1f} s, spawn "
+          f"included  ({label})")
+    print(f"phase 31 launches, summed over the ranks (K1-K4): "
+          f"{ {k: launches[k] for k in ('stem_fused', 'conv_int8', 'matmul_int8', 'bsr_matmul')} }")
+    print(f"phase 31 (parallelism, ranks sharing the card): "
+          f"{time.perf_counter() - t31:.1f} s")
+    return launches
+
+
+def _leaves(v):
+    """The arrays and scalars of a job's result, flattened (host times
+    left out: each rank has its own)."""
+    if isinstance(v, dict):
+        return [x for k in sorted(v) if k not in ("seconds", "ms_rank",
+                                                 "ms_whole")
+                for x in _leaves(v[k])]
+    if isinstance(v, (list, tuple)):
+        return [x for e in v for x in _leaves(e)]
+    return [v]
 
 
 def main() -> None:
@@ -3042,11 +3330,17 @@ def main() -> None:
     # ---- 30. training on the card ---------------------------------------
     tlaunches = train_phase(repo, dev, label, _kernels)
 
+    # ---- 31. parallelism: ranks sharing the card ------------------------
+    plaunches = parallel_phase(
+        dev, label, _kernels, model, sparse, batches[0], results[0].logits,
+        sresults[0].logits, lm, lm_scales, lm_args, prompts, ref[:LM_BATCH])
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
              + qlaunches[name] + rlaunches[name] + m14launches[name]
              + s14launches[name] + s128launches[name] + nlaunches[name]
              + alaunches[name] + zlaunches[name] + tlaunches[name]
+             + plaunches[name]
              for name in _kernels.KERNELS}
     total["bsr_matmul"] += art_k4
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -16,7 +16,8 @@
     generate  decoding on the INT8 block-sparse decoder LM: greedy, or
               sampled with --temperature/--top-k, and with --speculative
               prompt-lookup speculative decoding
-    serve     continuous-batching LM serving on the paged-KV engine
+    serve     continuous-batching LM serving on the paged-KV engine, with
+              --tp N sharded over N ranks (KV pools sliced by head)
     profile   per-layer table of a ResNet of the family: the measured
               forward over the layers' roofline times, or with --measured
               each layer's device time from a torch.profiler trace beside
@@ -622,12 +623,42 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def _serve_tp(args, lm, scales, prompts, engine):
+    """``serve --tp N``: the engine sharded over N spawned ranks (one
+    ``PagedKVBatcher(tp_mesh=...)`` a rank, the KV pools sliced by head);
+    every rank must return the same streams.  Returns rank 0's run."""
+    from resnet_accel_tpu_torch.parallel import jobs
+    from resnet_accel_tpu_torch.parallel.launch import (available_devices,
+                                                        default_backend,
+                                                        run_world)
+    backend = args.dist_backend or default_backend(args.device)
+    # over gloo the ranks may share a card; otherwise each needs a device
+    if not (backend == "gloo" and args.device == "cuda"):
+        have = available_devices(args.device)
+        if have < args.tp:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} devices, "
+                             f"have {have}")
+    reqs = [(p, args.n_new, args.sample_seed + i)
+            for i, p in enumerate(prompts)]
+    ranks = run_world(jobs.run_jobs, args.tp, device=args.device,
+                      backend=backend, timeout_s=3600.0, args=(
+                          args.device, [
+                              ("world", jobs.world_info, ()),
+                              ("serve", jobs.paged_tp, (
+                                  {"tp": args.tp}, lm, scales, [reqs],
+                                  engine))]))
+    streams = [r["serve"]["streams"] for r in ranks]
+    if any(s != streams[0] for s in streams):
+        raise RuntimeError(f"tp ranks returned different streams: {streams}")
+    return ranks[0]["serve"], ranks[0]["world"]
+
+
 def cmd_serve(args) -> int:
     """Continuous-batching serving on the paged-KV engine: several requests
     admitted into lockstep decode lanes over a page pool, with sampling,
     on-demand pages, prefix caching, int8 KV pages and speculative decoding
-    on the command line.  Prints each request's stream and the engine's
-    counters."""
+    on the command line, and with ``--tp N`` the engine sharded over N
+    ranks.  Prints each request's stream and the engine's counters."""
     from resnet_accel_tpu_torch.runtime.paged import PagedKVBatcher
 
     lm, scales = _seeded_lm(args)
@@ -636,32 +667,49 @@ def cmd_serve(args) -> int:
     for p in prompts:
         if len(p) + args.n_new > args.max_len:
             raise SystemExit("prompt + n_new exceeds --max-len")
-    eng = PagedKVBatcher(
-        lm, scales, slots=args.slots, page=args.page,
-        pool_pages=args.pool_pages, chunk=args.chunk,
-        temperature=args.temperature, top_k=args.top_k,
+    engine = dict(
+        slots=args.slots, page=args.page, pool_pages=args.pool_pages,
+        chunk=args.chunk, temperature=args.temperature, top_k=args.top_k,
         reserve=args.reserve, prefix_cache=args.prefix_cache,
         kv_dtype=args.kv_dtype, spec_draft=args.spec_draft,
-        spec_adaptive=args.spec_adaptive, device=args.device)
-    rids = [eng.submit(p, args.n_new, seed=args.sample_seed + i)
-            for i, p in enumerate(prompts)]
-    t0 = time.perf_counter()
-    res = eng.run()
-    dt = time.perf_counter() - t0
+        spec_adaptive=args.spec_adaptive)
+    if args.tp > 1:
+        run, world = _serve_tp(args, lm, scales, prompts, engine)
+        streams, dt, counters = (run["streams"][0], run["seconds"],
+                                 run["counters"])
+        pool_bytes = run["pool_bytes"]
+        where = (f"{world['device']}, {args.tp} ranks over "
+                 f"{world['backend']}")
+    else:
+        eng = PagedKVBatcher(lm, scales, device=args.device, **engine)
+        rids = [eng.submit(p, args.n_new, seed=args.sample_seed + i)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        res = eng.run()
+        dt = time.perf_counter() - t0
+        streams = [res[rid] for rid in rids]
+        counters = {k: getattr(eng, k) for k in (
+            "steps", "micro_steps", "cache_hits", "cache_tokens_skipped",
+            "preemptions", "spec_switches")}
+        pool_bytes = eng.kv_pool_bytes()
+        where = str(eng.device)
     toks = 0
-    for i, (p, rid) in enumerate(zip(prompts, rids)):
-        print(f"req {i}: prompt {p} -> {res[rid]}")
-        toks += len(res[rid])
-    bits = [f"{toks} tokens in {dt:.2f}s on {eng.device}",
-            f"{eng.steps} engine steps / {eng.micro_steps} micro-steps",
-            f"pool {eng.kv_pool_bytes() / 1e6:.2f} MB ({args.kv_dtype})"]
+    for i, (p, stream) in enumerate(zip(prompts, streams)):
+        print(f"req {i}: prompt {p} -> {stream}")
+        toks += len(stream)
+    bits = [f"{toks} tokens in {dt:.2f}s on {where}",
+            f"{counters['steps']} engine steps / {counters['micro_steps']} "
+            f"micro-steps",
+            f"pool {pool_bytes / 1e6:.2f} MB ({args.kv_dtype})"]
     if args.prefix_cache:
-        bits.append(f"cache hits {eng.cache_hits} "
-                    f"(+{eng.cache_tokens_skipped} prefill skipped)")
-    if eng.preemptions:
-        bits.append(f"preemptions {eng.preemptions}")
+        bits.append(f"cache hits {counters['cache_hits']} "
+                    f"(+{counters['cache_tokens_skipped']} prefill skipped)")
+    if counters["preemptions"]:
+        bits.append(f"preemptions {counters['preemptions']}")
     if args.spec_adaptive:
-        bits.append(f"spec mode switches {eng.spec_switches}")
+        bits.append(f"spec mode switches {counters['spec_switches']}")
+    if args.tp > 1:
+        bits.append(f"tp={args.tp} (KV sliced by head)")
     print("; ".join(bits))
     return 0
 
@@ -854,6 +902,14 @@ def build_parser() -> argparse.ArgumentParser:
     pv2.add_argument("--temperature", type=float, default=0.0)
     pv2.add_argument("--top-k", type=int, default=None)
     pv2.add_argument("--sample-seed", type=int, default=0)
+    pv2.add_argument("--tp", type=int, default=1,
+                     help="shard the engine over a tp mesh of this many "
+                          "ranks (KV pools sliced by head)")
+    pv2.add_argument("--dist-backend", default=None,
+                     choices=["gloo", "nccl"],
+                     help="the ranks' backend with --tp (default: nccl on "
+                          "cuda, a card a rank; gloo on the CPU; gloo on "
+                          "cuda lets ranks share a card)")
     pv2.add_argument("--layers", type=int, default=2)
     pv2.add_argument("--d-model", type=int, default=128)
     pv2.add_argument("--heads", type=int, default=4)

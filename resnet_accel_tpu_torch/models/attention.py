@@ -82,6 +82,21 @@ class SparseProjection:
                 np.asarray(self.bias, np.float32)).to(device))
 
 
+def projection_from_reference(p) -> SparseProjection:
+    """Carry one of the JAX package's ``SparseProjection``s across: its
+    BSR ``data``, ``row_ptr``, ``col_idx``, geometry, ``scales`` and
+    ``bias`` as numpy; nothing of the JAX module is imported."""
+    b = p.bsr
+    bsr = BSRMatrix(data=np.asarray(b.data, np.int8),
+                    row_ptr=np.asarray(b.row_ptr, np.int32),
+                    col_idx=np.asarray(b.col_idx, np.int32),
+                    shape=tuple(int(s) for s in b.shape),
+                    block_h=int(b.block_h), block_w=int(b.block_w))
+    return SparseProjection(
+        bsr=bsr, scales=np.asarray(p.scales, np.float32),
+        bias=None if p.bias is None else np.asarray(p.bias, np.float32))
+
+
 @dataclasses.dataclass
 class PackedProjection:
     """A :class:`SparseProjection` on a device."""

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from resnet_accel_tpu_torch.models.attention import SparseProjection
+from resnet_accel_tpu_torch.models.attention import (
+    SparseProjection, projection_from_reference)
 from resnet_accel_tpu_torch.models.sampling import (  # noqa: F401
     adjust_logits,
     greedy_accept,
@@ -136,6 +137,11 @@ class TransformerLMInt8:
             x = blk.forward_golden(x, causal=True)
         return layer_norm_np(x, self.lnf_g, self.lnf_b) @ self.embed.T
 
+    def __getstate__(self):
+        """Pickled as its numpy data (to a spawned rank, say): the modules
+        built on devices stay behind."""
+        return {**self.__dict__, "_on_device": {}}
+
     def module(self, device="cuda") -> "TransformerLMInt8Module":
         """The model on ``device``, built once per device."""
         dev = resolve_device(device)
@@ -216,19 +222,9 @@ def from_reference(lm) -> TransformerLMInt8:
     projection's BSR ``data``, ``row_ptr``, ``col_idx``, ``scales`` and
     ``bias``) and each block's ``n_heads``; nothing of the JAX module is
     imported."""
-    def proj(p) -> SparseProjection:
-        b = p.bsr
-        bsr = BSRMatrix(data=np.asarray(b.data, np.int8),
-                        row_ptr=np.asarray(b.row_ptr, np.int32),
-                        col_idx=np.asarray(b.col_idx, np.int32),
-                        shape=tuple(int(s) for s in b.shape),
-                        block_h=int(b.block_h), block_w=int(b.block_w))
-        return SparseProjection(
-            bsr=bsr, scales=np.asarray(p.scales, np.float32),
-            bias=None if p.bias is None else np.asarray(p.bias, np.float32))
-
     blocks = [TransformerBlockInt8(
-        **{name: proj(getattr(blk, name)) for name in PROJECTIONS},
+        **{name: projection_from_reference(getattr(blk, name))
+           for name in PROJECTIONS},
         **{k: np.asarray(getattr(blk, k), np.float32) for k in _LN},
         n_heads=int(blk.n_heads)) for blk in lm.blocks]
     return TransformerLMInt8(

@@ -1,7 +1,6 @@
 """Paged-KV continuous batching: block-table K/V for the INT8 LM.
 
-Counterpart of ``resnet_accel_tpu/runtime/paged.py`` (everything but its
-tensor-parallel ``tp_mesh``).  The fixed-slot engine
+Counterpart of ``resnet_accel_tpu/runtime/paged.py``.  The fixed-slot engine
 (``runtime.serving.ContinuousBatcher``) gives every slot a contiguous
 ``[max_len, d_model]`` cache; this one pages the KV, vLLM-style:
 
@@ -29,6 +28,10 @@ tensor-parallel ``tp_mesh``).  The fixed-slot engine
   1`` tokens a slot in one pass (known prompt tokens, then prompt-lookup
   drafts), accepted on the device; ``spec_adaptive`` switches to chunked
   steps while the acceptance does not pay.
+- **Tensor parallelism** (``tp_mesh``, a mesh with a ``"tp"`` axis; one
+  engine a rank of a world that ``parallel.launch.run_world`` spawned):
+  the pools sliced by head, the device program ``runtime/paged_tp.py``'s,
+  the host scheduler replicated in every rank.
 
 The decode arithmetic is the contiguous path's (``qkv_project``,
 ``attend_mlp_multi``, ``models.sampling``), so streams equal
@@ -71,6 +74,8 @@ class PagedKVBatcher(_IterationScheduler):
             to chunked steps while the tokens consumed a verify (an EWMA)
             stay under ``spec_min_take`` (default ``chunk``), probing again
             every ``spec_reprobe`` steps; greedy only.
+        tp_mesh: a ``DeviceMesh`` with a ``"tp"`` axis: this rank's share
+            of an engine sharded over it (``runtime/paged_tp.py``).
         device: ``"cuda"`` (default) or ``"cpu"``.
     """
 
@@ -83,7 +88,7 @@ class PagedKVBatcher(_IterationScheduler):
                  spec_adaptive: bool = False,
                  spec_min_take: Optional[float] = None,
                  spec_reprobe: int = 50, spec_probe: int = 3,
-                 device="cuda"):
+                 tp_mesh=None, device="cuda"):
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if chunk < 1:
@@ -158,11 +163,20 @@ class PagedKVBatcher(_IterationScheduler):
                 f"kv_dtype must be 'fp32' or 'int8', got {kv_dtype!r}")
         self.kv_dtype = kv_dtype
 
-        self.module = model.module(device)
-        self.device = self.module.device
-        self.scales = self.module.prepare_scales(scales)
-        shape = (len(model.blocks), self.pool_pages, self.page,
-                 model.d_model)
+        self._tp = None
+        if tp_mesh is None:
+            self.module = model.module(device)
+            self.device = self.module.device
+            self.scales = self.module.prepare_scales(scales)
+            width = model.d_model
+        else:
+            from resnet_accel_tpu_torch.runtime.paged_tp import \
+                build_tp_paged_programs
+            self._tp = build_tp_paged_programs(model, scales, tp_mesh,
+                                               device)
+            self.device = self._tp.device
+            width = self._tp.d_loc            # this rank's heads' slice
+        shape = (len(model.blocks), self.pool_pages, self.page, width)
 
         def pool():
             if kv_dtype == "int8":
@@ -212,7 +226,9 @@ class PagedKVBatcher(_IterationScheduler):
         if self.kv_dtype == "fp32":
             pool[li][pids, offs] = val
             return
-        s = val.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+        amax = (val.abs().amax(dim=-1) if self._tp is None
+                else self._tp.row_absmax(val))
+        s = amax.clamp_min(1e-8) / 127.0
         pool["q"][li][pids, offs] = torch.round(
             val / s[..., None]).clamp(-128, 127).to(torch.int8)
         pool["s"][li][pids, offs] = s
@@ -233,7 +249,10 @@ class PagedKVBatcher(_IterationScheduler):
         to ``lens + i``): logits [B, S, V].  Positions past the position
         table clamp to its last row, page rows past the table to its last
         column: such rows belong to finished requests or the final
-        overhang, and their outputs are discarded."""
+        overhang, and their outputs are discarded.  A tp engine runs its
+        rank's heads (``runtime/paged_tp.py``)."""
+        if self._tp is not None:
+            return self._tp.forward(self, toks, pos_idx, lens)
         m = self.module
         x = m.embed[toks] + m.pos[pos_idx.clamp(max=m.max_len - 1)]
         prow = (pos_idx // self.page).clamp(max=self._table_pages - 1)
@@ -364,12 +383,18 @@ class PagedKVBatcher(_IterationScheduler):
         return len(self._free)
 
     def kv_pool_bytes(self) -> int:
-        """Device bytes committed to the K and V page pools."""
-        tensors = []
+        """Device bytes committed to the K and V page pools, over every
+        rank of a tp engine (its head slices, and the int8 pools' scales
+        once: each rank holds the same)."""
+        tp = 1 if self._tp is None else self._tp.tp
+        total = 0
         for pool in (self._pool_k, self._pool_v):
-            tensors += list(pool.values()) if isinstance(pool, dict) \
-                else [pool]
-        return sum(t.numel() * t.element_size() for t in tensors)
+            if isinstance(pool, dict):
+                total += (pool["q"].numel() * tp
+                          + pool["s"].numel() * pool["s"].element_size())
+            else:
+                total += pool.numel() * pool.element_size() * tp
+        return total
 
     # ------------------------------------------------ prefix cache ops
     def _chain_key(self, prompt: Sequence[int], k: int) -> bytes:

@@ -42,6 +42,14 @@ def test_import_leaves_jax_out():
             "import resnet_accel_tpu_torch.train\n"
             "import resnet_accel_tpu_torch.train.lm\n"
             "import resnet_accel_tpu_torch.utils.mnist_data\n"
+            "import resnet_accel_tpu_torch.models.moe\n"
+            "import resnet_accel_tpu_torch.runtime.paged_tp\n"
+            "import resnet_accel_tpu_torch.parallel\n"
+            "from resnet_accel_tpu_torch.parallel import (launch, mesh, "
+            "collectives, sharded, heads, sequence, experts, pipeline, "
+            "combined, jobs, dryrun)\n"
+            "import resnet_accel_tpu_torch.parallel as P\n"
+            "[getattr(P, n) for n in P.__all__]\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'optax', "
             "'orbax', 'resnet_accel_tpu') or m.startswith(('jax.', "
             "'jaxlib', 'optax.', 'orbax.', 'resnet_accel_tpu.')))\n"
