@@ -13,7 +13,8 @@ ResNet-18 trained, pruned and quantization-aware fine-tuned at ImageNet
 geometry, the serving LM trained on the cyclic language and the MNIST CNN
 through the CLI's ``train``, each then served through the kernels; and
 the parallel programs (``resnet_accel_tpu_torch/parallel``) in spawned
-ranks that share the card over gloo, with a world of one NCCL rank.
+ranks that share the card over gloo, with a world of one NCCL rank; and
+the measuring tools (``resnet_accel_tpu_torch/tools``) at a cut depth.
 
     python3 chip_smoke.py
 
@@ -300,11 +301,28 @@ result line) without them.  Phases, each fatal on failure:
    engine's).  Each world prints its backend and devices; a failing rank
    fails the phase.  Prints K1-K4's launches summed over the ranks, which
    the kernels line adds.
+32. The measuring tools (``resnet_accel_tpu_torch/tools``), each run
+   with the counts reset just before: ``family_bench`` at ResNet-34, -101
+   and -152 (batch 128, 224 x 224, seed 0; one chained timing of 16
+   forwards over 3 pairs, the device time by scope, GMACs/img and MFU;
+   the logits of two images equal to the plain path's; K1, K2 and K3 and,
+   in the bottlenecks, K7 must launch, K2 and K7 once a conv of each
+   forward: 35 K2; 70 K2 and 33 K7; 104 K2 and 50 K7); the corpus LM
+   (``lm_corpus.FROZEN_GLOBS``, its byte count and sha256 printed, 10 %
+   held out) trained 300 steps (its loss must halve); ``spec_bench`` on
+   its four 640-token prompts, 256 new, draft 7 (greedy tokens identical
+   to ``generate``'s, K5 4 times a prefill, verify passes printed);
+   ``kv8_quality`` at ctx 512 over 4 held-out windows and its greedy
+   agreement; ``paged_bench``'s ctx 512 row and its pool oversubscribed
+   1.67x (tokens identical); ``paged_spec_bench`` at 4 slots, drafts 0
+   and 7, float32 KV (streams identical).  The engines must not launch
+   K5.  Prints K1, K2, K3, K5 and K7's launches, which the kernels line
+   adds.
 
 The line before the last is ``{"kernels": [...]}`` (launches summed over
 the served paths, phase 24's stream, phase 28's ``bench --artifact`` (its
 CUDA graphs' replays counted by hand), phase 29's decoders, phase 30's
-served models and phase 31's ranks included; ms
+served models, phase 31's ranks and phase 32's tools included; ms
 the kernel's time summed over the shapes of the paths walked: ResNet-18
 and ResNet-50 for K1-K3, the sparse ResNet-18 for K4, ResNet-50 for K7,
 the four layers of one prompt's prefill for K5, the sweep's four cases
@@ -1160,6 +1178,116 @@ def parallel_phase(dev, label, _kernels, model, sparse, xb, logits,
           f"{ {k: launches[k] for k in ('stem_fused', 'conv_int8', 'matmul_int8', 'bsr_matmul')} }")
     print(f"phase 31 (parallelism, ranks sharing the card): "
           f"{time.perf_counter() - t31:.1f} s")
+    return launches
+
+
+#: Phase 32: the measuring tools at the smoke's depth.
+TOOL_DEPTHS = (34, 101, 152)       # 18 and 50 run in phases 2-6
+TOOL_LM_STEPS = 300                # the corpus LM (the tools train 1500)
+
+
+def tools_phase(dev, label, _kernels) -> dict:
+    """Phase 32: the port's measuring tools (``resnet_accel_tpu_torch/
+    tools``), each run with the counts reset just before.  Returns the
+    launch counts of its paths."""
+    from resnet_accel_tpu_torch.models.resnet import trunk_convs
+    from resnet_accel_tpu_torch.tools import (family_bench, kv8_quality,
+                                              lm_corpus, paged_bench,
+                                              paged_spec_bench, spec_bench)
+    t32 = time.perf_counter()
+    launches = dict.fromkeys(_kernels.KERNELS, 0)
+
+    def counted(fn, what, must=(), k5=None):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        counts = _kernels.launch_counts()
+        print(f"launch counts, {what}: "
+              f"{ {k: n for k, n in counts.items() if n} } "
+              f"({time.perf_counter() - t0:.1f} s)")
+        for name in must:
+            if counts[name] == 0:
+                fail(f"kernel {name} was never launched by {what}")
+        if k5 is not None and counts["flash_attention"] != k5:
+            fail(f"{what}: flash_attention launched "
+                 f"{counts['flash_attention']} times, not {k5}")
+        for k, n in counts.items():
+            launches[k] += n
+        return out, counts
+
+    # 32.1 family_bench at the depths the earlier phases leave out: one
+    # chained timing each, logits of two images equal to the plain path's
+    for depth in TOOL_DEPTHS:
+        convs = trunk_convs(depth)
+        n_c3 = sum(c.name.endswith(".c3") for c in convs)
+        must = ["stem_fused", "conv_int8", "matmul_int8"] + (
+            ["expand_add"] if n_c3 else [])
+        row, counts = counted(
+            lambda: family_bench.bench_depth(depth, chain=16, iters=3,
+                                             device=dev, label=label),
+            f"family_bench ResNet-{depth}", must)
+        n = counts["stem_fused"]
+        if (counts["matmul_int8"] != n
+                or counts["conv_int8"] != n * (len(convs) - n_c3)
+                or counts["expand_add"] != n * n_c3):
+            fail(f"ResNet-{depth}: {counts} is not {len(convs) - n_c3} K2 "
+                 f"and {n_c3} K7 launches for each of {n} forwards")
+        print(f"family_bench ResNet-{depth}: {row['img_per_s']:.1f} img/s "
+              f"chained, device {row['xprof_device_us']:.1f} us by scope, "
+              f"MFU {100 * row['mfu_int8']:.2f} %, {n} forwards of "
+              f"{len(convs) - n_c3} K2 and {n_c3} K7 convs; top scopes "
+              f"{ {k: round(v, 1) for k, v in row['top_scopes_us'].items()} }"
+              f"  ({label})")
+
+    # 32.2 the corpus LM, trained on the frozen corpus (10 % held out)
+    corpus = lm_corpus.corpus_bytes()
+    print(lm_corpus.describe(corpus))
+    stats = {}
+    (lm, scales, held), _ = counted(
+        lambda: lm_corpus.train_corpus_lm(
+            corpus, steps=TOOL_LM_STEPS, holdout_frac=0.1, device=dev,
+            stats=stats), "train_corpus_lm")
+    h = stats["losses"]
+    if not (np.isfinite(h).all()
+            and np.mean(h[-20:]) < 0.5 * np.mean(h[:20])):
+        fail(f"corpus LM loss {h[0]:.3f} -> {h[-1]:.3f}: not learning")
+    print(f"corpus LM: {TOOL_LM_STEPS} steps of 32 x 128 bytes in "
+          f"{stats['seconds']:.2f} s, loss {h[0]:.4f} -> {h[-1]:.4f}  "
+          f"({label})")
+
+    # 32.3 spec_bench on its four prompts: greedy tokens identical, K5 in
+    # each prefill (a warm and a timed call of each path a prompt)
+    prompts = spec_bench.corpus_prompts(corpus)
+    res, _ = counted(
+        lambda: spec_bench.run(lm, scales, prompts, device=dev, label=label),
+        "spec_bench", ["flash_attention"],
+        k5=4 * len(prompts) * len(lm.blocks))
+    print(f"spec_bench: verify passes {[r['passes'] for r in res['prompts']]}"
+          f" of {spec_bench.N_NEW}, speedup {res['speedup']:.2f}x  ({label})")
+
+    # 32.4 kv8_quality: ctx 512 over 4 held-out windows, and the greedy
+    # agreement (the engines bypass K5)
+    counted(lambda: kv8_quality.measure(lm, scales, held, dev, ctxs=(512,),
+                                        n_windows=4, seeds=0, label=label),
+            "kv8_quality ctx 512, greedy", k5=0)
+
+    # 32.5 paged_bench's ctx 512 row, the oversubscribed pool's tokens
+    # identical to the full pool's
+    counted(lambda: paged_bench.ctx_rows(512, 384, 96, dev, label,
+                                         int8=False),
+            "paged_bench ctx 512, oversubscribed", k5=0)
+
+    # 32.6 paged_spec_bench at 4 slots, drafts 0 and 7, float32 KV: the
+    # speculative streams identical to draft 0's
+    counted(lambda: paged_spec_bench.grid(lm, scales, corpus, drafts=(0, 7),
+                                          slot_counts=(4,),
+                                          kv_dtypes=("fp32",), device=dev,
+                                          label=label),
+            "paged_spec_bench 4 slots, drafts 0 and 7", k5=0)
+    print("phase 32 launches (K1, K2, K3, K5, K7): " + str(
+        {k: launches[k] for k in ("stem_fused", "conv_int8", "matmul_int8",
+                                  "flash_attention", "expand_add")}))
+    print(f"phase 32 (the measuring tools): {time.perf_counter() - t32:.1f} s")
     return launches
 
 
@@ -3335,12 +3463,15 @@ def main() -> None:
         dev, label, _kernels, model, sparse, batches[0], results[0].logits,
         sresults[0].logits, lm, lm_scales, lm_args, prompts, ref[:LM_BATCH])
 
+    # ---- 32. the measuring tools ------------------------------------------
+    olaunches = tools_phase(dev, label, _kernels)
+
     total = {name: launches[name] + launches50[name] + slaunches[name]
              + mlaunches[name] + llaunches[name] + claunches[name]
              + qlaunches[name] + rlaunches[name] + m14launches[name]
              + s14launches[name] + s128launches[name] + nlaunches[name]
              + alaunches[name] + zlaunches[name] + tlaunches[name]
-             + plaunches[name]
+             + plaunches[name] + olaunches[name]
              for name in _kernels.KERNELS}
     total["bsr_matmul"] += art_k4
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

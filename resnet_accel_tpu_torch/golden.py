@@ -1,11 +1,12 @@
 """Numpy pieces of the golden that the port needs.
 
-Copies of ``bsr_matmul_int8_wt`` (with its int32 wrap) from
-``resnet_accel_tpu/golden/gemm.py`` and of ``scale_to_q16`` and
+``bsr_matmul_int8_wt`` (with its int32 wrap), the function of
+``resnet_accel_tpu/golden/gemm.py`` computed as one exact float64 product
+rather than a loop over the blocks, and copies of ``scale_to_q16`` and
 ``q16_to_scale`` from ``resnet_accel_tpu/golden/ops.py``, kept here so the
 port imports nothing of the JAX package.  The LM's calibration runs its
 projections through the first; the other two give the Q16.16 register of
-``ops.epilogue.requantize_q16``.  The tests hold each copy equal to its
+``ops.epilogue.requantize_q16``.  The tests hold each equal to its
 original.
 """
 
@@ -55,21 +56,18 @@ def bsr_matmul_int8_wt(
     num_block_rows = len(row_ptr) - 1
     if N is None:
         N = num_block_rows * block_h
-    C = np.zeros((M, N), dtype=np.int64)
-    A64 = A.astype(np.int64)
-
-    for br in range(num_block_rows):
-        n0 = br * block_h
-        nh = min(block_h, N - n0)
-        if nh <= 0:
-            continue
-        for idx in range(int(row_ptr[br]), int(row_ptr[br + 1])):
-            bc = int(col_idx[idx])
-            k0 = bc * block_w
-            kw = min(block_w, K - k0)
-            if kw <= 0:
-                continue
-            a_slice = A64[:, k0:k0 + kw]                    # [M, kw]
-            blk = data[idx][:nh, :kw].astype(np.int64)      # [nh, kw]
-            C[:, n0:n0 + nh] += a_slice @ blk.T
+    # The stored blocks scattered into a dense W, then one float64 product:
+    # every partial sum is an integer below 2^53 in magnitude (each product
+    # of two int8 values is at most 2^14, and K < 2^39), so the product is
+    # exact in any order of summation, as the int64 sums are.
+    nnz = int(row_ptr[-1])
+    n_cols = max(-(-K // block_w), int(col_idx[:nnz].max()) + 1 if nnz
+                 else 0)
+    grid = np.zeros((max(num_block_rows, -(-N // block_h)), n_cols,
+                     block_h, block_w), np.float64)
+    rows = np.repeat(np.arange(num_block_rows), np.diff(row_ptr))
+    grid[rows, col_idx[:nnz]] = data[:nnz]
+    W = grid.transpose(0, 2, 1, 3).reshape(grid.shape[0] * block_h,
+                                           n_cols * block_w)[:N, :K]
+    C = np.rint(A.astype(np.float64) @ W.T).astype(np.int64)
     return _wrap_i32(C)

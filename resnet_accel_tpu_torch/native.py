@@ -138,6 +138,17 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def is_available() -> bool:
+    """Whether the host library builds and loads here: a skip condition
+    only (a caller that goes on to use the library calls ``lib()``, whose
+    errors say what failed)."""
+    try:
+        lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def version() -> str:
     return lib().rat_version().decode()
 

@@ -23,9 +23,12 @@ from resnet_accel_tpu_torch.ops.conv import (
 )
 from resnet_accel_tpu_torch.ops.epilogue import (
     add_residual,
+    dequantize_output,
     exact_inv_out_scale,
     exact_pow2_inv,
     quantize_input,
+    relu6_int8,
+    relu_int8,
     requant_factors,
     requantize,
     requantize_q16,
@@ -82,6 +85,7 @@ __all__ = [
     "bsr_plan",
     "conv2d_int8",
     "conv2d_int8_plain",
+    "dequantize_output",
     "device_pack_gather",
     "exact_inv_out_scale",
     "exact_pow2_inv",
@@ -104,6 +108,8 @@ __all__ = [
     "quantize_s2d",
     "quantize_s2d_nchw",
     "quantize_s2d_wh",
+    "relu6_int8",
+    "relu_int8",
     "requant_factors",
     "requantize",
     "requantize_q16",

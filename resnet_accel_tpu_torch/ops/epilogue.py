@@ -150,7 +150,27 @@ def add_residual(
     return q.to(torch.int8)
 
 
+def relu_int8(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` as int8."""
+    return x.clamp_min(0).to(torch.int8)
+
+
+def relu6_int8(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Clamped ReLU with the golden's truncated upper bound
+    ``int8(int(float32(6) / float32(scale)))``; like the golden, it raises
+    ``OverflowError`` where that bound leaves int8 (``scale`` < 6 / 127)."""
+    max_val = int(np.int8(int(np.float32(6.0) / np.float32(scale))))
+    return x.clamp(0, max_val).to(torch.int8)
+
+
 def quantize_input(x: torch.Tensor, scale: float) -> torch.Tensor:
     """fp32 -> int8: ``clip(rint(x / scale), -128, 127)``."""
     q = torch.round(x.to(torch.float32) / scalar_f32(scale, x.device))
     return q.clamp(-128, 127).to(torch.int8)
+
+
+def dequantize_output(x: torch.Tensor, scale) -> torch.Tensor:
+    """int -> fp32 logits: ``float32(x) * float32(scale)``, ``scale`` a
+    scalar or one a channel of the last axis."""
+    s = torch.as_tensor(np.asarray(scale, np.float32), device=x.device)
+    return x.to(torch.float32) * s

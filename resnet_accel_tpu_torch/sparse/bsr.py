@@ -155,40 +155,30 @@ def build_bsr(
     )  # [nbr, nbc]
     keep = norms > threshold
 
-    data_list, col_list, row_ptr = [], [], [0]
-    for br in range(nbr):
-        cols = np.nonzero(keep[br])[0]
-        for bc in cols:
-            block = tiled[br, :, bc, :]
-            if quantize:
-                block_i8 = np.empty((block_h, block_w), dtype=np.int8)
-                for lr in range(block_h):
-                    g = br * block_h + lr
-                    if g < height and g < len(scales):
-                        s = scales[g]
-                    elif len(scales) > 0:
-                        s = scales[0]
-                    else:
-                        s = 1.0
-                    block_i8[lr] = np.clip(
-                        np.rint(block[lr] / s), -128, 127
-                    ).astype(np.int8)
-                data_list.append(block_i8)
-            else:
-                data_list.append(np.array(block, dtype=weight.dtype))
-            col_list.append(int(bc))
-        row_ptr.append(len(data_list))
-
-    if data_list:
-        data = np.stack(data_list)
+    # the kept blocks in row-major order: block rows ascending, columns
+    # ascending within each
+    brs, bcs = np.nonzero(keep)
+    if quantize:
+        # each padded row's scale: its own, else scales[0], else 1; Python
+        # floats divide in the weight's type, as a scalar divisor would
+        scales = (scales if isinstance(scales, np.ndarray) else np.asarray(
+            scales, np.result_type(tiled.dtype, 1.0)))
+        rows = np.arange(nbr * block_h)
+        s_row = (scales[np.where((rows < height) & (rows < len(scales)),
+                                 rows, 0)]
+                 if len(scales) else np.ones(
+                     rows.size, np.result_type(tiled.dtype, 1.0)))
+        blocks = tiled[brs, :, bcs, :] / s_row.reshape(nbr, block_h)[brs][
+            :, :, None]
+        data = np.clip(np.rint(blocks), -128, 127).astype(np.int8)
     else:
-        dtype = np.int8 if quantize else weight.dtype
-        data = np.zeros((0, block_h, block_w), dtype=dtype)
+        data = np.array(tiled[brs, :, bcs, :], dtype=weight.dtype)
+    row_ptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
 
     return BSRMatrix(
         data=data,
         row_ptr=np.asarray(row_ptr, dtype=np.int32),
-        col_idx=np.asarray(col_list, dtype=np.int32),
+        col_idx=np.asarray(bcs, dtype=np.int32),
         shape=(height, width),
         block_h=block_h,
         block_w=block_w,

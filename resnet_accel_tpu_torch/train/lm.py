@@ -16,7 +16,7 @@ off.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,6 +135,56 @@ def cyclic_sequences(vocab: int, seq_len: int, n: int, seed: int = 0,
     return seqs
 
 
+def adam_steps(
+    params: Dict[str, np.ndarray],
+    n_layers: int,
+    n_heads: int,
+    next_batch: Callable[[], np.ndarray],
+    steps: int,
+    lr: float = 3e-3,
+    device="cuda",
+    masks: Optional[Dict[str, np.ndarray]] = None,
+    on_step: Optional[Callable] = None,
+) -> Tuple[Dict[str, np.ndarray], List[float]]:
+    """``steps`` Adam steps on the mean next-token cross-entropy of the
+    token windows that ``next_batch()`` returns, one [batch, seq] array a
+    step.  Every parameter but ``meta`` and the sinusoidal ``pos`` table
+    trains; each of ``masks`` (by key) is multiplied back into its
+    parameter after every step.  ``on_step(step, loss, tensors)`` runs
+    after each.  Runs on ``device`` (``"cuda"`` by default; it raises
+    without a card).  Returns (params, loss history)."""
+    dev = resolve_device(device)
+    fp32_matmuls()
+    train_keys = [k for k in params if k != "meta" and k != "pos"]
+    tp = to_device(params, dev, train_keys)
+    full = dict(tp)
+    full["pos"] = torch.from_numpy(np.asarray(params["pos"])).to(dev)
+    opt = torch.optim.Adam(list(tp.values()), lr=lr)
+    tmasks = {k: torch.from_numpy(np.asarray(m, np.float32)).to(dev)
+              for k, m in (masks or {}).items()}
+
+    losses = []
+    for s in range(steps):
+        toks = torch.from_numpy(next_batch()).to(dev).long()
+        logits = lm_forward_fp32(full, toks, n_layers, n_heads)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               toks[:, 1:].reshape(-1))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if tmasks:
+            with torch.no_grad():
+                for k, m in tmasks.items():
+                    tp[k].mul_(m)
+        losses.append(loss.detach())
+        if on_step is not None:
+            on_step(s, losses[-1], tp)
+    out = dict(params)
+    for k in train_keys:
+        out[k] = tp[k].detach().cpu().numpy()
+    return out, host_floats(losses)
+
+
 def train_lm(
     params: Dict[str, np.ndarray],
     n_layers: int,
@@ -147,36 +197,15 @@ def train_lm(
     seed: int = 0,
     device="cuda",
 ) -> Tuple[Dict[str, np.ndarray], List[float]]:
-    """Adam on next-token cross-entropy over the cyclic language, the mean
-    over every (sequence, position) pair.  Projections, LN and the
-    embedding train; the sinusoidal position table stays fixed.  Runs on
-    ``device`` (``"cuda"`` by default; it raises without a card).  Returns
-    (params, loss history)."""
-    dev = resolve_device(device)
-    fp32_matmuls()
-    train_keys = [k for k in params if k != "meta" and k != "pos"]
-    tp = to_device(params, dev, train_keys)
-    full = dict(tp)
-    full["pos"] = torch.from_numpy(np.asarray(params["pos"])).to(dev)
-    opt = torch.optim.Adam(list(tp.values()), lr=lr)
-
+    """:func:`adam_steps` over the cyclic language, each step's batch
+    seeded from one generator seeded ``seed``.  Returns (params, loss
+    history)."""
     rng = np.random.default_rng(seed)
-    losses = []
-    for _ in range(steps):
-        toks = torch.from_numpy(cyclic_sequences(
-            vocab, seq_len, batch, seed=int(rng.integers(1 << 30)))).to(
-                dev).long()
-        logits = lm_forward_fp32(full, toks, n_layers, n_heads)
-        loss = F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
-                               toks[:, 1:].reshape(-1))
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    out = dict(params)
-    for k in train_keys:
-        out[k] = tp[k].detach().cpu().numpy()
-    return out, host_floats(losses)
+    return adam_steps(
+        params, n_layers, n_heads,
+        lambda: cyclic_sequences(vocab, seq_len, batch,
+                                 seed=int(rng.integers(1 << 30))),
+        steps, lr, device)
 
 
 # ==========================================================================

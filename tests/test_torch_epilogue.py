@@ -1,5 +1,7 @@
-"""PyTorch port: the reference's Q16.16 requant and the power-of-two
-reciprocal against the numpy golden and the JAX package, bit for bit.
+"""PyTorch port: the reference's Q16.16 requant, the power-of-two
+reciprocal, ``relu_int8``, ``relu6_int8`` (its overflow below a scale of
+6 / 127 included) and ``dequantize_output`` against the numpy golden and
+the JAX package, bit for bit.
 
 The cases are those of ``tests/test_golden_ops.py`` (Q16.16),
 ``tests/test_native.py`` and ``tests/test_ops_tpu.py`` (the full int32
@@ -17,7 +19,9 @@ import jax.numpy as jnp
 from resnet_accel_tpu import golden as G
 from resnet_accel_tpu.ops import epilogue as JE
 from resnet_accel_tpu_torch import golden
-from resnet_accel_tpu_torch.ops import exact_pow2_inv, requantize_q16
+from resnet_accel_tpu_torch.ops import (dequantize_output, exact_pow2_inv,
+                                        relu6_int8, relu_int8,
+                                        requantize_q16)
 from resnet_accel_tpu_torch.quant import pow2_scale
 
 torch.set_num_threads(2)
@@ -105,3 +109,61 @@ def test_exact_pow2_inv_refuses_subnormal_reciprocal():
     assert exact_pow2_inv(2.0 ** 127) is None
     assert exact_pow2_inv(2.0 ** 126) == JE.exact_pow2_inv(2.0 ** 126) \
         == float(np.finfo(np.float32).tiny)
+
+
+def _int8_cases(seed):
+    x = np.random.default_rng(seed).integers(-128, 128, (3, 5, 7))
+    return np.concatenate([x.reshape(-1), [-128, -1, 0, 1, 127]]).astype(
+        np.int8)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32])
+def test_relu_int8_matches_jax(dtype):
+    x = _int8_cases(1).astype(dtype)
+    got = relu_int8(torch.from_numpy(x))
+    want = np.asarray(JE.relu_int8(jnp.asarray(x)))
+    assert got.dtype == torch.int8 and want.dtype == np.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), G.relu_int8(
+        x.astype(np.int8)))
+
+
+@pytest.mark.parametrize("scale", [6 / 127, 0.05, 0.1, 0.2, 0.5,
+                                   1.0, 7.0])
+def test_relu6_int8_matches_jax_and_golden(scale):
+    x = _int8_cases(2)
+    got = relu6_int8(torch.from_numpy(x), scale)
+    want = np.asarray(JE.relu6_int8(jnp.asarray(x), scale))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), G.relu6_int8(x, scale))
+
+
+@pytest.mark.parametrize("scale", [0.01, 6 / 128])
+def test_relu6_int8_bound_out_of_int8_raises_as_jax(scale):
+    """Below 6 / 127 the truncated bound leaves int8: at 0.01 it is 600,
+    and the JAX op, the golden and the port raise the same error."""
+    x = _int8_cases(3)
+    with pytest.raises(OverflowError) as jerr:
+        JE.relu6_int8(jnp.asarray(x), scale)
+    with pytest.raises(OverflowError) as gerr:
+        G.relu6_int8(x, scale)
+    with pytest.raises(OverflowError) as perr:
+        relu6_int8(torch.from_numpy(x), scale)
+    assert str(perr.value) == str(jerr.value) == str(gerr.value)
+    if scale == 0.01:
+        assert "600 out of bounds for int8" in str(perr.value)
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("dtype", [np.int8, np.int32])
+def test_dequantize_output_matches_jax(per_channel, dtype):
+    rng = np.random.default_rng(4)
+    x = rng.integers(-(2 ** 20), 2 ** 20, (6, 10)).astype(dtype) \
+        if dtype == np.int32 else _int8_cases(4)[:60].reshape(6, 10)
+    scale = (rng.uniform(1e-4, 0.3, 10).astype(np.float32) if per_channel
+             else 0.0123456789)
+    got = dequantize_output(torch.from_numpy(x), scale)
+    want = np.asarray(JE.dequantize_output(jnp.asarray(x), scale))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -115,3 +115,41 @@ def test_cli_infer_cuda_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["infer", "--input", str(path), "--device", "cuda",
                   "--small-input", "--num-classes", "10"])
+
+
+TOOLS = ("lm_corpus", "spec_bench", "kv8_quality", "lm_quality",
+         "paged_bench", "paged_spec_bench", "family_bench")
+
+
+def test_tools_import_neither_jax_nor_the_jax_tools():
+    """The port's measuring tools, imported in a fresh interpreter, pull in
+    neither jax, the JAX package nor the JAX package's ``tools/``; no
+    source of theirs names them."""
+    code = ("import sys\n"
+            + "".join(f"import resnet_accel_tpu_torch.tools.{t}\n"
+                      for t in TOOLS)
+            + "bad = sorted(m for m in sys.modules if m in ('jax', 'optax', "
+              "'resnet_accel_tpu', 'tools') or m.startswith(('jax.', "
+              "'jaxlib', 'optax.', 'resnet_accel_tpu.', 'tools.')))\n"
+              "print(bad)\n"
+              "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|"
+                     r"resnet_accel_tpu|tools)\b", re.M)
+    for t in TOOLS:
+        with open(os.path.join(PKG_DIR, "tools", t + ".py")) as fh:
+            assert not pat.search(fh.read()), t
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tool_without_a_card_fails(tool):
+    """The tools run on the card by default, with no fallback to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    import importlib
+    mod = importlib.import_module(f"resnet_accel_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main([])

@@ -283,3 +283,26 @@ class TestBatchLoader:
         ld.close()                                  # idempotent
         with pytest.raises(RuntimeError, match="closed"):
             ld.next()
+
+
+class TestIsAvailable:
+    def test_true_where_the_library_loads(self):
+        assert native.is_available() is True
+        assert native.is_available() == (native.lib() is not None)
+
+    @pytest.mark.parametrize("fault", ["build", "load"])
+    def test_false_when_the_build_or_the_load_fails(self, fault,
+                                                    monkeypatch, tmp_path):
+        """A fresh build directory, then g++ handed a flag it refuses, or a
+        file at the library's path that is no library."""
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+        if fault == "build":
+            monkeypatch.setattr(native, "CXXFLAGS",
+                                native.CXXFLAGS + ["-fno-such-flag"])
+        else:
+            (tmp_path / f"libresnet_accel_host-{native._digest()}.so"
+             ).write_bytes(b"not a shared object")
+        assert native.is_available() is False
+        with pytest.raises(RuntimeError if fault == "build" else OSError):
+            native.lib()
