@@ -719,13 +719,13 @@ def cmd_profile(args) -> int:
     on two seeded images: the roofline table with the measured forward
     distributed over it, or with ``--measured`` each layer's measured time
     (device time on a card; ``runtime.xprof``) beside its roofline bound
-    (``runtime.profile``)."""
+    with the weights read once a batch (``runtime.profile.layer_bounds``)."""
     import torch
     from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
                                                       quantize_resnet)
     from resnet_accel_tpu_torch.runtime import xprof
     from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
-    from resnet_accel_tpu_torch.runtime.profile import profile_resnet18
+    from resnet_accel_tpu_torch.runtime.profile import layer_bounds
 
     rng = np.random.default_rng(0)
     hw = 32 if args.small_input else 224
@@ -740,9 +740,8 @@ def cmd_profile(args) -> int:
     if args.measured:
         xt = torch.from_numpy(x).to(eng.device)
         agg, _ = xprof.profile_layers(eng.module, xt)
-        bounds = {r.name: r.latency_s for r in profile_resnet18(
-            model, input_hw=hw, batch=args.batch).records}
-        print(xprof.layer_table(agg, bounds))
+        print(xprof.layer_table(agg, layer_bounds(model, input_hw=hw,
+                                                  batch=args.batch)))
     else:
         print(eng.profile(x, iters=args.iters))
     print(f"ResNet-{args.depth}, batch {args.batch}, {hw}x{hw}, "

@@ -49,7 +49,9 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
   runs in a ``record_function`` scope named after its row of
   ``runtime.profile.profile_resnet18`` (``stem``, ``b{i}.c1``,
   ``b{i}.c2`` with a basic block's join, ``b{i}.c3`` with a bottleneck's,
-  ``b{i}.ds``, ``fc``) or ``pool``.
+  ``b{i}.ds``, ``fc``) or ``pool`` (``runtime.xprof.scope``); a BSR
+  layer's scope holds ``im2col``, ``k4`` and, where it joins a residual,
+  ``join``.
 
 The numerical specification is the numpy golden ``forward_golden`` of the
 JAX package's module.
@@ -57,7 +59,6 @@ JAX package's module.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -97,6 +98,7 @@ from resnet_accel_tpu_torch.ops import (
 from resnet_accel_tpu_torch.quant import (bias_to_int32, pow2_scale,
                                           quantize_symmetric_per_channel)
 from resnet_accel_tpu_torch.runtime.backend import resolve_device
+from resnet_accel_tpu_torch.runtime.xprof import scope
 from resnet_accel_tpu_torch.sparse.bsr import BSRMatrix, build_bsr_int8_direct
 
 #: Stage plan: (out_channels, blocks, first_stride) of ResNet-18.
@@ -658,19 +660,6 @@ def prune_params_blockwise(
 # Forward
 # ==========================================================================
 
-_NO_SCOPE = contextlib.nullcontext()
-
-
-def _scope(name: str):
-    """A ``torch.profiler`` scope named ``name`` (the rows of
-    ``runtime.profile.profile_resnet18``, and ``pool``) while a profiler
-    records, so that ``runtime.xprof`` can attribute each kernel's device
-    time to its layer; no scope otherwise, so serving pays nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return _NO_SCOPE
-
-
 class Int8Conv(nn.Module):
     """One quantized conv's tensors on the device, with its geometry.
 
@@ -678,7 +667,8 @@ class Int8Conv(nn.Module):
     ``expand``, as a bottleneck's 1x1 c3 joined to its residual through
     ``expand`` (K7); with ``weight=None`` the layer's BSR blocks are
     uploaded instead and it runs im2col, then ``bsr`` (K4), and joins a
-    residual, if given, after."""
+    residual, if given, after, each in a scope of its own (``im2col``,
+    ``k4``, ``join``) inside the layer's."""
 
     def __init__(self, qc: QConv, weight: Optional[torch.Tensor],
                  device: torch.device):
@@ -706,14 +696,19 @@ class Int8Conv(nn.Module):
         N, _, H, W = x.shape
         Ho = (H + 2 * self.padding - self.kernel) // self.stride + 1
         Wo = (W + 2 * self.padding - self.kernel) // self.stride + 1
-        a = im2col_nchw(x, self.kernel, self.stride, self.padding)
-        q = bsr(a.reshape(N * Ho * Wo, -1), self.packed, bias=self.bias,
-                factors=self.factors, relu=self.relu)
-        # [N*Ho*Wo, O] is NHWC: as NCHW it is channels-last already
-        q = q.view(N, Ho, Wo, -1).permute(0, 3, 1, 2)
+        with scope("im2col"):
+            a = im2col_nchw(x, self.kernel, self.stride,
+                            self.padding).reshape(N * Ho * Wo, -1)
+        with scope("k4"):
+            q = bsr(a, self.packed, bias=self.bias, factors=self.factors,
+                    relu=self.relu)
+            # [N*Ho*Wo, O] is NHWC: as NCHW it is channels-last already
+            q = q.view(N, Ho, Wo, -1).permute(0, 3, 1, 2)
         if residual is not None:
-            q = add_residual(q, residual, *res_scales, relu=True).contiguous(
-                memory_format=torch.channels_last)
+            with scope("join"):
+                q = add_residual(q, residual, *res_scales,
+                                 relu=True).contiguous(
+                    memory_format=torch.channels_last)
         return q
 
 
@@ -804,7 +799,7 @@ class ResNet18Int8Module(nn.Module):
         int8_in = x.dtype == torch.int8
         st = self.stem
         cl = torch.channels_last
-        with _scope("stem"):
+        with scope("stem"):
             if self.small_input:
                 a = x if int8_in else quantize_input(x, self.s_input)
                 a = F.pad(a, (0, 0, 0, 0, 0, 1))
@@ -825,24 +820,24 @@ class ResNet18Int8Module(nn.Module):
         for i, (convs, rs, inv) in enumerate(zip(self.blocks,
                                                  self.res_scales,
                                                  self.inv_out)):
-            with _scope(f"b{i}.c1"):
+            with scope(f"b{i}.c1"):
                 y = convs["c1"](a, conv, bsr)
             r = a
             if "ds" in convs:
-                with _scope(f"b{i}.ds"):
+                with scope(f"b{i}.ds"):
                     r = convs["ds"](a, conv, bsr)
             if "c3" in convs:  # a bottleneck: c2, then c3 with the join
-                with _scope(f"b{i}.c2"):
+                with scope(f"b{i}.c2"):
                     y = convs["c2"](y, conv, bsr)
-                with _scope(f"b{i}.c3"):
+                with scope(f"b{i}.c3"):
                     a = convs["c3"](y, conv, bsr, residual=r, res_scales=rs,
                                     expand=expand, inv_out=inv)
             else:
-                with _scope(f"b{i}.c2"):
+                with scope(f"b{i}.c2"):
                     a = convs["c2"](y, conv, bsr, residual=r,
                                     res_scales=rs)
-        with _scope("pool"):
+        with scope("pool"):
             a = avgpool_global_int8(a)
-        with _scope("fc"):
+        with scope("fc"):
             acc = matmul(a, self.fc_w, bias=self.fc_b)
             return acc.to(torch.float32) * self.fc_deq

@@ -25,7 +25,6 @@ _EXPORTS = {
     "Platform": "perf",
     "PLATFORMS": "perf",
     "get_platform": "perf",
-    "trace_profile": "perf",
     "ContinuousBatcher": "serving",
     "PagedKVBatcher": "paged",
 }

@@ -35,6 +35,7 @@ from resnet_accel_tpu_torch.runtime.perf import (LayerProfiler, PerfMetrics,
                                                  median_time_s)
 from resnet_accel_tpu_torch.runtime.profile import (profile_resnet18,
                                                     profile_table)
+from resnet_accel_tpu_torch.runtime.xprof import scope
 
 
 class AccelErrorCode(enum.Enum):
@@ -162,7 +163,8 @@ class _StagingRing:
     ``depth`` of them, of ``dtype``, pinned on a card, used in turn.  After
     each upload an event is recorded on the current stream, and a buffer
     is handed out again only once the event of its last upload has fired,
-    so that nothing overwrites bytes a copy is still reading."""
+    so that nothing overwrites bytes a copy is still reading; while a
+    profiler records, that wait is the span ``engine.ring_wait``."""
 
     def __init__(self, device: torch.device, dtype: torch.dtype,
                  depth: int):
@@ -177,7 +179,8 @@ class _StagingRing:
         """The next buffer, of ``shape``, free to fill."""
         i = self.i
         if self.events[i] is not None:
-            self.events[i].synchronize()
+            with scope("engine.ring_wait"):
+                self.events[i].synchronize()
         buf = self.bufs[i]
         if buf is None or tuple(buf.shape) != tuple(shape):
             buf = torch.empty(shape, dtype=self.dtype,
@@ -273,23 +276,25 @@ class InferenceEngine:
 
     @staticmethod
     def _fill(loader, ring: _StagingRing):
-        """The loader's next batch in the ring's next buffer: the native
-        loader writes it there itself; another loader's int8 NCHW numpy
-        batch is copied in."""
-        if isinstance(loader, BatchLoader):
-            if len(loader.item_shape) != 3:
-                raise ValueError(f"stream takes NCHW batches; the loader's "
-                                 f"items are {loader.item_shape}")
-            _, y = loader.next(out=ring.buffer(
-                (loader.batch,) + tuple(loader.item_shape)))
+        """The loader's next batch in the ring's next buffer, in the span
+        ``engine.fill``: the native loader writes it there itself; another
+        loader's int8 NCHW numpy batch is copied in."""
+        with scope("engine.fill"):
+            if isinstance(loader, BatchLoader):
+                if len(loader.item_shape) != 3:
+                    raise ValueError(f"stream takes NCHW batches; the "
+                                     f"loader's items are "
+                                     f"{loader.item_shape}")
+                _, y = loader.next(out=ring.buffer(
+                    (loader.batch,) + tuple(loader.item_shape)))
+                return y
+            x, y = loader.next()
+            if x.ndim != 4 or x.dtype != np.int8:
+                raise ValueError(
+                    f"stream takes int8 NCHW batches quantized with the "
+                    f"model's s_input, got {x.dtype} of shape {x.shape}")
+            ring.buffer(x.shape).copy_(torch.from_numpy(x))
             return y
-        x, y = loader.next()
-        if x.ndim != 4 or x.dtype != np.int8:
-            raise ValueError(
-                f"stream takes int8 NCHW batches quantized with the "
-                f"model's s_input, got {x.dtype} of shape {x.shape}")
-        ring.buffer(x.shape).copy_(torch.from_numpy(x))
-        return y
 
     def stream(self, loader, n_batches: int) -> StreamResult:
         """Serve ``n_batches`` int8 batches from ``loader`` (a native
@@ -299,7 +304,12 @@ class InferenceEngine:
         queued without waiting for the one before.  The first batch runs
         outside the clock; ``images_per_s`` covers the rest (the first
         batch again when ``n_batches`` is 1), timed by CUDA events on a
-        card and the host clock on the CPU."""
+        card (the start event, recorded behind the first batch's work,
+        fires when that work ends) and the host clock on the CPU.  While
+        a profiler records, each batch's fill is the span ``engine.fill``
+        and the call's end, from the last event's wait to the logits,
+        predictions and labels on the host, ``engine.drain``; neither
+        holds a layer's scope."""
         if n_batches < 1:
             raise AcceleratorError(AccelErrorCode.INVALID_CONFIG,
                                    f"n_batches={n_batches} < 1")
@@ -311,7 +321,6 @@ class InferenceEngine:
             x0 = ring.upload()
             outs = [self.module(x0)]
             if cuda:
-                torch.cuda.synchronize(self.device)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -324,20 +333,23 @@ class InferenceEngine:
                     labels.append(self._fill(loader, ring))
                     outs.append(self.module(ring.upload()))
                 timed_images = sum(o.shape[0] for o in outs[1:])
-            if cuda:
-                end.record()
-                try:
-                    end.synchronize()
-                except RuntimeError as e:
-                    raise AcceleratorError(
-                        AccelErrorCode.BACKEND_UNAVAILABLE, str(e)) from e
-                dt = start.elapsed_time(end) / 1e3
-            else:
-                dt = time.perf_counter() - t0
-            logits = self._host(torch.cat(outs))
+            with scope("engine.drain"):
+                if cuda:
+                    end.record()
+                    try:
+                        end.synchronize()
+                    except RuntimeError as e:
+                        raise AcceleratorError(
+                            AccelErrorCode.BACKEND_UNAVAILABLE,
+                            str(e)) from e
+                    dt = start.elapsed_time(end) / 1e3
+                else:
+                    dt = time.perf_counter() - t0
+                logits = self._host(torch.cat(outs))
+                predictions = logits.argmax(axis=-1)
+                labels = np.concatenate(labels) if has_labels else None
         return StreamResult(
-            logits=logits, predictions=logits.argmax(axis=-1),
-            labels=np.concatenate(labels) if has_labels else None,
+            logits=logits, predictions=predictions, labels=labels,
             latency_s=dt, images_per_s=timed_images / dt)
 
     def _forward_work(self, x_shape) -> Tuple[int, int]:

@@ -5,7 +5,7 @@ reference's PerfMetrics: GOPS, utilization, bandwidth, operational
 intensity and the roofline side of one measured region), ``LayerProfiler``
 and ``PerfTimer``, against the one platform the port runs on, the H100;
 ``measure_chained`` and ``median_pair_time``, the chained steady-state
-basis of ``bench.py``; ``trace_profile``, a ``torch.profiler`` Chrome trace.
+basis of ``bench.py``.
 
 Every clock here is CUDA events on a card and the host clock, after a
 synchronize, on the CPU.
@@ -14,9 +14,7 @@ synchronize, on the CPU.
 from __future__ import annotations
 
 import dataclasses
-import os
 import statistics
-import tempfile
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -266,22 +264,3 @@ def median_time_s(fn: Callable, iters: int, device: torch.device) -> float:
     fn()
     _sync(device)
     return statistics.median(_elapsed_s(fn, device) for _ in range(iters))
-
-
-def trace_profile(fn: Callable, *args, logdir: Optional[str] = None) -> str:
-    """One call of ``fn`` under ``torch.profiler`` (CPU, and CUDA where a
-    card is present), written as a Chrome trace into ``logdir``; returns
-    the trace's path."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    device = _device_of(list(args))
-    if device is not None and device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    logdir = logdir or tempfile.mkdtemp(prefix="rat_trace_")
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        out = fn(*args)
-        _sync(_device_of(out) or device)
-    path = os.path.join(logdir, "trace.json")
-    prof.export_chrome_trace(path)
-    return path

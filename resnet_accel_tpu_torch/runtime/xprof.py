@@ -1,11 +1,12 @@
 """Measured per-layer device time from a ``torch.profiler`` trace.
 
 Counterpart of ``resnet_accel_tpu/runtime/xprof.py``, which reads scopes
-from the compiled HLO and times from the TPU's xplane.  Here the model
-marks its layers with ``torch.profiler.record_function`` scopes
-(``models/resnet18.py``), and one call, in a scope of its own
-(``CALL_SCOPE``), is captured under ``torch.profiler.profile`` (CPU and
-CUDA activities) and exported as a Chrome trace.  Each device kernel (and
+from the compiled HLO and times from the TPU's xplane.  Here the program
+marks its layers, and the engine its own work, with
+``torch.profiler.record_function`` scopes through ``scope``
+(``models/resnet18.py``, ``runtime/engine.py``), and one call, in a scope
+of its own (``CALL_SCOPE``), is captured under ``torch.profiler.profile``
+(CPU and CUDA activities) and exported as a Chrome trace.  Each device kernel (and
 copy or fill) in the trace names, by its ``correlation`` id, the host call
 that launched it (``cudaLaunchKernel``, ``cuLaunchKernel`` ...); that
 call lies on the host's timeline inside the scopes that were open when it
@@ -28,6 +29,7 @@ the capture so that it is tested without a card.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import json
 import os
@@ -54,6 +56,20 @@ LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
 #: after them.
 LEAD_KERNELS = 512
 LEAD_CYCLES = 20_000
+
+
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def scope(name: str):
+    """A ``record_function`` scope named ``name`` while a ``torch.profiler``
+    records, so that its spans share the profiler's clock with the device
+    records and ``attribute`` can give each kernel's device time to the
+    scope it was launched in; otherwise one shared ``nullcontext``, so that
+    serving with no profiler pays one check and nothing more."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE
 
 
 @dataclasses.dataclass
@@ -90,7 +106,7 @@ class _Scopes:
                 # its parent)
                 while stack and stack[-1][1] < end - 1e-3:
                     stack.pop()
-                path = "/".join([s[2] for s in stack] + [e["name"]])
+                path = (stack[-1][2] + "/" if stack else "") + e["name"]
                 stack.append((ts, end, path))
                 rows.append((ts, end, path))
             self.threads[key] = ([r[0] for r in rows], rows)

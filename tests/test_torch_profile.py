@@ -7,6 +7,7 @@ attribution on synthetic trace events, ``profile_layers`` on the CPU over
 the model's ``record_function`` scopes, and the CLI's ``profile``.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -22,7 +23,8 @@ from resnet_accel_tpu_torch.models.resnet import (init_resnet_fp32,
 from resnet_accel_tpu_torch.runtime import xprof
 from resnet_accel_tpu_torch.runtime.engine import InferenceEngine
 from resnet_accel_tpu_torch.runtime.perf import get_platform
-from resnet_accel_tpu_torch.runtime.profile import (profile_resnet18,
+from resnet_accel_tpu_torch.runtime.profile import (layer_bounds,
+                                                    profile_resnet18,
                                                     profile_table)
 
 torch.set_num_threads(2)
@@ -96,6 +98,34 @@ class TestRooflineProfile:
         assert [(r.name, r.total_ops, r.bytes_accessed)
                 for r in got.records] == [
             (r.name, r.total_ops, r.bytes_accessed) for r in want.records]
+
+    def test_layer_bounds_read_weights_once_a_batch(self, imagenet_models):
+        """At batch 128 b7.c2's bound (3 x 3, 512 channels at 7 x 7) is
+        its operations' time, no longer 128 reads of its 2.36 MB weight:
+        its byte count, each image's input and output and the weight once,
+        takes less time than its operations."""
+        m = imagenet_models[18]
+        p = get_platform()
+        bounds = layer_bounds(m, batch=128)
+        row = {r.name: r for r in profile_resnet18(m, batch=128).records}
+        assert list(bounds) == list(row)
+        act = 7 * 7 * 512 * 2
+        weights = 512 * 512 * 9
+        nbytes = 128 * act + weights
+        ops = row["b7.c2"].total_ops
+        assert ops == 2 * 128 * 7 * 7 * 512 * 512 * 9
+        assert bounds["b7.c2"] == pytest.approx(max(
+            ops / p.peak_int8_ops, nbytes / p.hbm_bytes_per_s), rel=1e-12)
+        assert bounds["b7.c2"] == pytest.approx(ops / p.peak_int8_ops,
+                                                rel=1e-12)
+        assert nbytes / p.hbm_bytes_per_s < bounds["b7.c2"]
+        # profile_resnet18 reads the weight once an image, as JAX's does
+        assert row["b7.c2"].bytes_accessed == 128 * (act + weights)
+        assert row["b7.c2"].latency_s > 5 * bounds["b7.c2"]
+        # at batch 1 the two agree
+        one = {r.name: r.latency_s
+               for r in profile_resnet18(m, batch=1).records}
+        assert layer_bounds(m, batch=1) == pytest.approx(one, rel=1e-12)
 
     def test_table_renders(self, imagenet_models):
         table = profile_table(profile_resnet18(imagenet_models[18]))
@@ -234,6 +264,27 @@ class TestAttribution:
         assert agg == {"outer/inner": pytest.approx(2e-6),
                        "outer": pytest.approx(3e-6)}
 
+    def test_three_deep_scope_paths(self):
+        """A scope two levels down (a sparse layer's k4 inside its layer
+        inside the call) has the path of its enclosing scopes, each
+        once."""
+        evs = [_ev("user_annotation", "call", 0.0, 100.0),
+               _ev("user_annotation", "b0.c1", 10.0, 50.0),
+               _ev("user_annotation", "k4", 20.0, 10.0),
+               _ev("cuda_runtime", "cudaLaunchKernel", 22.0, 1.0,
+                   correlation=1),
+               _ev("cuda_runtime", "cudaLaunchKernel", 40.0, 1.0,
+                   correlation=2),
+               _ev("kernel", "bsr", 50.0, 4.0, pid=0, correlation=1),
+               _ev("kernel", "copy", 55.0, 2.0, pid=0, correlation=2)]
+        ops = xprof.attribute(evs, device=True, root="call")
+        assert {o.scope for o in ops} == {"b0.c1/k4", "b0.c1"}
+        assert xprof.by_scope(ops) == {"b0.c1": pytest.approx(6e-6)}
+        cpu = xprof.by_scope(xprof.attribute(evs, device=False, root="call"),
+                             depth=2)
+        assert cpu == {"b0.c1": pytest.approx(40e-6),
+                       "b0.c1/k4": pytest.approx(10e-6)}
+
     def test_layer_table_matches_jax_and_adds_bounds(self):
         agg = {"b0.c1": 3e-5, "stem": 1e-4, "pool": 1e-6}
         assert xprof.layer_table(agg) == jxprof.layer_table(agg)
@@ -256,11 +307,28 @@ class TestProfileLayers:
         assert all(v > 0 for v in agg.values())
         assert all(o.scope for o in ops)
 
-    def test_scopes_cost_nothing_unprofiled(self, cifar18):
+    def test_scopes_cost_nothing_unprofiled(self, cifar18, monkeypatch):
+        """With no profiler recording, neither the model's layers, nor a
+        block-sparse layer's im2col, K4 and join, nor ``stream``'s fill,
+        ring and drain open a ``record_function``."""
         from resnet_accel_tpu_torch.models import resnet18 as P
+        from resnet_accel_tpu_torch.runtime.engine import QuantizingLoader
         assert not torch.autograd._profiler_enabled()
-        assert not isinstance(P._scope("stem"),
+        assert not isinstance(xprof.scope("stem"),
                               torch.profiler.record_function)
+        assert xprof.scope("stem") is xprof.scope("engine.fill")
+        opened = []
+        monkeypatch.setattr(torch.profiler, "record_function",
+                            lambda name: opened.append(name)
+                            or contextlib.nullcontext())
+        sparse = P.attach_bsr(cifar18, block=64, min_sparsity=0.0)
+        eng = InferenceEngine(sparse, device="cpu")
+        x = np.random.default_rng(3).normal(
+            0, 1, (4, 3, 32, 32)).astype(np.float32)
+        res = eng.stream(QuantizingLoader(x, sparse.s_input, 2), 2)
+        eng.run_inference(x[:1])
+        assert res.logits.shape == (4, 10)
+        assert opened == []
 
     def test_bottleneck_scopes(self):
         m = _model(50, True, 32, classes=10)

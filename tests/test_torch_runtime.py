@@ -170,13 +170,6 @@ class TestPerf:
                              outer=1, chain=2, reps=1)
         assert seen[:3] == [1.0, 1.0, 1.0]          # warm-up, then a chain
 
-    def test_trace_profile_writes_a_chrome_trace(self, tmp_path):
-        import json
-        path = perf.trace_profile(lambda a: a @ a, torch.ones(8, 8),
-                                  logdir=str(tmp_path))
-        with open(path) as f:
-            assert json.load(f)["traceEvents"]
-
 
 class TestPower:
     def test_profile_math_with_explicit_watts(self):
