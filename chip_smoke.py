@@ -143,19 +143,24 @@ result line) without them.  Phases, each fatal on failure:
    plain version; the engine's logits against the plain path on the card
    and the CPU, counts reset just before), the GEMM M = 512, N = K = 2048
    at 0.7 (with the 128 x 128 case beside it), and the seed-0 ResNet-18
-   pruned 0.7 at 14 x 14 at batch 8 (K4 against plain at each sparse
-   conv, with its bound and ``_int_mm`` on the densified weight, and the
-   128 x 128 model's; the engine's logits against the plain path and the
-   dense forward of the pruned model).  Then the same model at batch 128
-   (no plain path at this size): at each of its 19 convs K4 in int32
-   against ``_int_mm`` on the densified weight (exact), both timed, and
+   pruned 0.7 at 14 x 14 at batch 8 (K4, on its own pack of each sparse
+   conv's blocks, against plain, with its bound and ``_int_mm`` on the
+   densified weight, and the 128 x 128 model's; K4's conv route
+   ``bsr_conv`` against its plain version at each 14 x 14 conv; the
+   engine, whose 19 convs each take one launch of the route and none of
+   K4: logits against the plain path and the dense forward of the pruned
+   model).  Then the same model at batch 128: at each of its 19 convs the
+   route against its plain version, bit for bit, timed beside its bound
+   (the kernels line's ``bsr_conv`` times) and beside the three stages it
+   replaces (im2col, K4, join; equal too), K4 in int32 against
+   ``_int_mm`` on the densified weight (exact), both timed, and
    the JAX package's recipe beside it -- the conv's 14 x 14 blocks
    regrouped to 128 x 128 (``sparse/regroup.py``) on K4's Hopper path,
    bit for bit against the native path, with each conv's
    ``effective_density``; three batches through the engine (counts reset
-   just before, K4 on ``wgmma_small`` only), logits against the dense
-   forward of the pruned model; both forwards' img/s in the order dense,
-   sparse, sparse, dense.
+   just before, 19 conv-route launches a batch, none of K4), logits
+   against the dense forward of the pruned model; both forwards' img/s
+   in the order dense, sparse, sparse, dense.
 22. K8 at block_c 16, block_o 14 on the sweep's l3.c1 and l4.ds, against
    its plain version and the dense K2, bit for bit, on its ``mma_sync``
    route (the only one those blocks take).
@@ -385,6 +390,19 @@ def bsr_work(a, pk, out):
     nbytes = (M * a_cols + pk.blocks.numel() + 4 * (pk.row_ptr.numel()
               + pk.col_idx.numel()) + 8 * pk.n_out
               + out.numel() * out.element_size())
+    return nbytes, 2 * M * pk.blocks.numel(), "int8"
+
+
+def bsr_conv_work(x, pk, out, join):
+    """Bytes and int8 operations of one call of K4's conv route, counted
+    from its stored blocks.  In: the layer's input once (not the patch
+    matrix), the residual where it ``join``s one, the stored blocks and
+    their indices, bias and factors.  Out: the output.  The products of
+    the stored blocks only."""
+    M = out.numel() // pk.n_out
+    nbytes = (x.numel() + (out.numel() if join else 0) + pk.blocks.numel()
+              + 4 * (pk.row_ptr.numel() + pk.col_idx.numel()) + 8 * pk.n_out
+              + out.numel())
     return nbytes, 2 * M * pk.blocks.numel(), "int8"
 
 
@@ -1321,7 +1339,8 @@ def main() -> None:
         ResNet18Int8Module, attach_bsr, init_resnet18_fp32,
         prune_params_blockwise, quantize_resnet18)
     from resnet_accel_tpu_torch.ops import (
-        add_residual, avgpool_global_int8, bsr_matmul_wt, bsr_matmul_wt_plain,
+        add_residual, avgpool_global_int8, bsr_conv2d_int8,
+        bsr_conv2d_int8_plain, bsr_matmul_wt, bsr_matmul_wt_plain,
         conv2d_int8, conv2d_int8_plain, expand_add_int8,
         expand_add_int8_plain, expand_plan, flash_attention,
         flash_attention_plain,
@@ -2515,10 +2534,14 @@ def main() -> None:
 
     def k4_walk(model_, what, regroup=None):
         """K4 against its plain version at each sparse conv of a batch of
-        8; the summed K4, plain, bound and ``_int_mm`` times, and with
+        8 (on K4's own pack of the conv's blocks), and where the layer
+        takes K4's conv route, the route against its plain version; the
+        summed K4, plain, bound and ``_int_mm`` times, and with
         ``regroup`` (each conv's BSR by name) the weights regrouped to 128
         x 128's."""
         m = ResNet18Int8Module(model_, dev).eval()
+        bsrs = {n: qc.bsr for n, qc in model_.named_convs()
+                if qc.bsr is not None}
         tot = plain_tot = bound_tot = lib_tot = reg_tot = 0.0
         with torch.inference_mode():
             a = stem_conv_pool(x8, m.stem_k1_w, m.stem.bias,
@@ -2531,7 +2554,7 @@ def main() -> None:
                         A = im2col_nchw(inp, cv.kernel, cv.stride,
                                         cv.padding).reshape(
                             -1, inp.shape[1] * cv.kernel ** 2)
-                        pk = cv.packed
+                        pk = pack_bsr(bsrs[f"b{i}.{tag}"], dev)
                         kw = dict(bias=cv.bias, factors=cv.factors,
                                   relu=cv.relu)
                         check("bsr_matmul", f"b{i}.{tag}",
@@ -2551,11 +2574,31 @@ def main() -> None:
                                 A, regroup[f"b{i}.{tag}"],
                                 bsr_matmul_wt(A, pk, **kw), f"b{i}.{tag}",
                                 **kw)[1]
+                        if cv.packed.walk_images is not None:
+                            route_check(cv, f"b{i}.{tag}", inp, join,
+                                        what, timed=False)
                     return cv(inp, conv2d_int8, bsr_matmul_wt, **join)
                 y = run("c1", a)
                 r = run("ds", a) if "ds" in convs else a
                 a = run("c2", y, residual=r, res_scales=rs)
         return tot, plain_tot, bound_tot, lib_tot, reg_tot
+    def route_check(cv, name, inp, join, what, timed=True):
+        """K4's conv route against its plain version (the three stages) at
+        one conv, bit for bit, timed beside its bound."""
+        geo = dict(kernel=cv.kernel, stride=cv.stride, padding=cv.padding,
+                   relu=cv.relu, **join)
+        pk = cv.packed
+        return check("bsr_conv", name,
+                     lambda: bsr_conv2d_int8(inp, pk, cv.bias, cv.factors,
+                                             **geo),
+                     lambda: bsr_conv2d_int8_plain(inp, pk, cv.bias,
+                                                   cv.factors, **geo),
+                     f"x{list(inp.shape)} O{pk.n_out} {pk.nnz_source}/"
+                     f"{pk.total_source} blocks {what}"
+                     f"{' +join' if join else ''}",
+                     lambda out: bsr_conv_work(inp, pk, out, bool(join)),
+                     timed=timed)
+
     k4_14, k4_14p, k4_14b, k4_14l, k4_14r = k4_walk(sparse14, "14x14",
                                                     bsr14)
     k4_128, _, k4_128b, k4_128l, _ = k4_walk(sparse, "128x128")
@@ -2569,9 +2612,10 @@ def main() -> None:
     x8np = batches[0][:8]
     s14res, s14launches = served_launches(
         _kernels, lambda: s14engine.run_inference(x8np),
-        ["stem_fused", "matmul_int8", "bsr_matmul"],   # every conv is sparse
+        ["stem_fused", "matmul_int8", "bsr_conv"],   # every conv is sparse
         "sparse ResNet-18 at 14 x 14, a batch of 8",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_small"})
+        {"matmul_int8": "wgmma_tma", "bsr_conv": {"wgmma_gather": 19},
+         "bsr_matmul": {}})
     with torch.inference_mode():
         for what, ref in (
                 ("the plain path", s14engine.module.forward_plain(x8)),
@@ -2584,10 +2628,12 @@ def main() -> None:
           "the plain path and to the dense forward of the pruned model")
     del m14engine
 
-    # the 14 x 14 model at batch 128: each conv against _int_mm and the
+    # the 14 x 14 model at batch 128: each conv's route against its plain
+    # version and the three stages it replaces, K4 against _int_mm and the
     # regroup recipe, then the served forward
     m14 = s14engine.module
-    t128 = {"k4": 0.0, "int_mm": 0.0, "regroup": 0.0, "bound": 0.0}
+    t128 = {"k4": 0.0, "int_mm": 0.0, "regroup": 0.0, "bound": 0.0,
+            "route": 0.0, "route_bound": 0.0, "chain": 0.0}
     with torch.inference_mode():
         a = stem_conv_pool(x0, m14.stem_k1_w, m14.stem.bias,
                            m14.stem.factors, m14.s_input)
@@ -2596,10 +2642,29 @@ def main() -> None:
                 cv = convs[tag]
                 if cv.packed is None:
                     fail(f"b{i}.{tag} carries no BSR at 14 x 14")
+                name = f"b{i}.{tag}"
+                ref = route_check(cv, name, inp, join, "14x14")
+                t128["route"] += last_check["ms"]
+                t128["route_bound"] += last_check["bound_ms"]
                 A = im2col_nchw(inp, cv.kernel, cv.stride,
                                 cv.padding).reshape(
                     -1, inp.shape[1] * cv.kernel ** 2)
-                pk, name = cv.packed, f"b{i}.{tag}"
+                pk = pack_bsr(bsr14[name], dev)   # K4's pack of its blocks
+                kw = dict(bias=cv.bias, factors=cv.factors, relu=cv.relu)
+
+                def chain():
+                    q = bsr_matmul_wt(im2col_nchw(
+                        inp, cv.kernel, cv.stride, cv.padding).reshape(
+                        A.shape), pk, **kw)
+                    q = q.view(inp.shape[0], *ref.shape[2:],
+                               -1).permute(0, 3, 1, 2)
+                    if join:
+                        q = add_residual(q, join["residual"],
+                                         *join["res_scales"], relu=True)
+                    return q.contiguous(memory_format=cl)
+                if not torch.equal(chain(), ref):
+                    fail(f"K4's conv route at {name} != the three stages")
+                t128["chain"] += time_ms(chain, 10)
                 lib = int_mm_call(A, densify(pk))
                 if lib is None:
                     fail(f"_int_mm does not take {name}'s shape")
@@ -2627,6 +2692,10 @@ def main() -> None:
             y = run128("c1", a)
             r = run128("ds", a) if "ds" in convs else a
             a = run128("c2", y, residual=r, res_scales=rs)
+    print(f"K4's conv route over the 14 x 14 ResNet-18's {len(bsr14)} "
+          f"convs at batch {BATCH}: {t128['route']:.4f} ms (bound "
+          f"{t128['route_bound']:.4f}); the three stages it replaces "
+          f"(im2col, K4, join) {t128['chain']:.4f} ms  ({label})")
     print(f"K4 over the 14 x 14 ResNet-18's {len(bsr14)} convs at batch "
           f"{BATCH}: {t128['k4']:.4f} ms (bound {t128['bound']:.4f}); "
           f"_int_mm on the densified weights {t128['int_mm']:.4f} ms; the "
@@ -2634,9 +2703,10 @@ def main() -> None:
           f"{t128['regroup']:.4f} ms  ({label})")
     s128res, s128launches = served_launches(
         _kernels, lambda: [s14engine.run_inference(xb) for xb in batches],
-        ["stem_fused", "matmul_int8", "bsr_matmul"],
+        ["stem_fused", "matmul_int8", "bsr_conv"],
         f"sparse ResNet-18 at 14 x 14, {len(batches)} batches of {BATCH}",
-        {"matmul_int8": "wgmma_tma", "bsr_matmul": "wgmma_small"})
+        {"matmul_int8": "wgmma_tma",
+         "bsr_conv": {"wgmma_gather": 19 * len(batches)}, "bsr_matmul": {}})
     d14engine = InferenceEngine(pruned14, device="cuda")
     with torch.inference_mode():
         for b, (xb, res) in enumerate(zip(batches, s128res)):

@@ -13,7 +13,8 @@ Every C entry point launches on the stream it is given and returns
 one to the kernel's launch count, and to the count of the variant it was
 given (K2's, K3's, K4's, K7's and K8's paths, chosen by shape: K4's
 ``wgmma_tma``, ``wgmma_small`` for blocks of at most 16 x 16,
-``mma_sync``; K7's and K8's ``wgmma_tma``, ``mma_sync``).  The counts
+``mma_sync``; K7's and K8's ``wgmma_tma``, ``mma_sync``; K4's conv route
+``bsr_conv``, one variant, ``wgmma_gather``).  The counts
 let a run show that its main path really went through the kernels, and
 which path.
 
@@ -61,7 +62,7 @@ class Kernel:
     name: str
     symbol: str
     source: str            # path in the repo
-    replaces: str          # the TPU kernel it replaces, file:line
+    replaces: str          # the TPU kernel it replaces, file:line, or none
     argtypes: List
     launches: int = 0
     variants: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -105,6 +106,10 @@ KERNELS: Dict[str, Kernel] = {
                "resnet_accel_tpu_torch/csrc/stem_pack.cu",
                "resnet_accel_tpu/ops/stem_pack.py:142",
                [_P] * 2 + [_I] * 4 + [_F, _P]),
+        Kernel("bsr_conv", "bsr_conv_launch",
+               "resnet_accel_tpu_torch/csrc/bsr_conv.cu",
+               "none: K4's conv route, im2col, K4 and the join in one",
+               [_P] * 10 + [_I] * 26 + [_F] * 3 + [_P]),
     )
 }
 

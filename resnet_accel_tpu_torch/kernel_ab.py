@@ -56,6 +56,16 @@ decode (``max_abs_err``), and, where the checkout has ``verify_step``,
 16-token verify passes against the lone decode steps; and, where it has
 ``runtime/paged.py``, ``score()`` of 200 prompt tokens against the
 teacher-forced forward's log-probs (``chip_smoke.py`` phase 29's check);
+K4C: K4's conv route (``bsr_conv2d_int8``, one launch a conv, where the
+checkout has it) against the three stages it replaced (``im2col_nchw``,
+K4's ``bsr_matmul_wt``, ``add_residual`` and the channels-last copy, as
+``Int8Conv`` ran them) at each of ResNet-18's 19 trunk convs at batch 128,
+224 x 224, 14 x 14 blocks at 0.7 (seed 3; the residual joined at each
+c2), layer by layer and summed, the route's plain version once a layer
+beside them, with each layer's bound (its input and
+output bytes, stored blocks and their indices once, or its operations
+over the stored blocks' elements; ``cardbench``'s roofline count) in a
+line of its own; ``--cases K4`` runs it too;
 R18: the checkout's whole ResNet-18 forward at batch 128 through
 ``InferenceEngine.benchmark`` (seed-0 weights, median of ``--iters``),
 dense and pruned 0.7 in 128 x 128 blocks (K4's Hopper path); R50: its
@@ -437,6 +447,21 @@ def _run(repo: str, iters: int, trunks, cases=()) -> None:
         emit(case, total, " ".join(sorted(str(p) for p in plans)))
         library[case] = lib_total
         del calls
+
+    # ---- K4's conv route against the three stages ----
+    if want("K4C"):
+        totals = {}
+        for name, calls in _k4c_calls(torch, ops, dev, trunks[18]):
+            for what, fn in calls.items():
+                # the plain version (float64 products) once: it is slow
+                ms = (fn() if what == "bound" else
+                      None if fn is None else
+                      _time_ms(torch, fn, 1 if what == "plain" else iters))
+                if ms is not None:
+                    emit(f"K4C {what} {name} 14 batch 128", ms)
+                    totals[what] = totals.get(what, 0.0) + ms
+        for what, ms in totals.items():
+            emit(f"K4C {what} resnet18 19 convs 14 batch 128", ms)
 
     # ---- K2 ----
     for depth, convs in trunks.items() if want("K2") else ():
@@ -966,6 +991,74 @@ def _k4_cases(torch, ops, rng, dev, small_only=False):
             yield (f"K4 resnet18 {len(convs)} convs {block} batch {batch}",
                    [call(batch * pix, N, K, block, 0.7)
                     for pix, K, N in convs])
+
+
+def _k4c_calls(torch, ops, dev, convs):
+    """ResNet-18's 19 trunk convs at batch 128 (``trunk_convs``' rows), 14
+    x 14 blocks zeroed at 0.7: (name, {"route": the conv route's call and
+    "plain" its plain version's, None where the checkout lacks them,
+    "chain": the three stages' call, "bound": a function giving the
+    layer's bound in ms}), one conv's data at a time."""
+    import numpy as np
+
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    rng = np.random.default_rng(3)
+    cl = torch.channels_last
+    for name, _, C, O, H, k, s in convs:
+        K, pad = C * k * k, k // 2
+        Ho = (H + 2 * pad - k) // s + 1
+        W = rng.integers(-128, 128, (O, K)).astype(np.int8)
+        keep = rng.random((-(-O // 14), -(-K // 14))) >= 0.7
+        mask = np.repeat(np.repeat(keep, 14, 0), 14, 1)[:O, :K]
+        W *= mask
+        bsr = build_bsr_int8_direct(W, 14)
+        pk = ops.pack_bsr(bsr, dev)
+        x = torch.randint(-128, 128, (128, H, H, C), dtype=torch.int8,
+                          device=dev).permute(0, 3, 1, 2)
+        bias = torch.from_numpy(rng.integers(-3000, 3000, O).astype(
+            np.int32)).to(dev)
+        f = torch.from_numpy((rng.uniform(0.5, 1.5, O) * 0.4 / np.sqrt(K))
+                             .astype(np.float32)).to(dev)
+        kw = dict(kernel=k, stride=s, padding=pad, relu=True)
+        join = name.endswith(".c2")
+        if join:
+            kw.update(relu=False, res_scales=(0.02, 0.03, 0.04),
+                      residual=torch.randint(
+                          -128, 128, (128, Ho, Ho, O), dtype=torch.int8,
+                          device=dev).permute(0, 3, 1, 2))
+
+        def chain(x=x, pk=pk, bias=bias, f=f, kw=kw, Ho=Ho):
+            a = ops.im2col_nchw(x, kw["kernel"], kw["stride"],
+                                kw["padding"]).reshape(128 * Ho * Ho, -1)
+            q = ops.bsr_matmul_wt(a, pk, bias=bias, factors=f,
+                                  relu=kw["relu"])
+            q = q.view(128, Ho, Ho, -1).permute(0, 3, 1, 2)
+            if "residual" in kw:
+                q = ops.add_residual(q, kw["residual"], *kw["res_scales"],
+                                     relu=True).contiguous(memory_format=cl)
+            return q
+
+        route = plain = cpk = None
+        if hasattr(ops, "bsr_conv2d_int8"):
+            # a conv layer's pack: the route's walk, not K4's stages
+            cpk = ops.pack_bsr(bsr, dev, conv=True)
+
+            def route(x=x, pk=cpk, bias=bias, f=f, kw=kw):
+                return ops.bsr_conv2d_int8(x, pk, bias, f, **kw)
+
+            def plain(x=x, pk=cpk, bias=bias, f=f, kw=kw):
+                return ops.bsr_conv2d_int8_plain(x, pk, bias, f, **kw)
+
+        def bound(bsr=bsr, C=C, O=O, H=H, Ho=Ho, join=join,
+                  elements=int(mask.sum())):
+            macs = 128 * Ho * Ho * elements
+            nbytes = (128 * (C * H * H + O * Ho * Ho * (2 if join else 1))
+                      + bsr.nnz_blocks * (14 * 14 + 4)
+                      + 4 * (bsr.num_block_rows + 1) + 8 * O)
+            return max(2 * macs / 1979e12, nbytes / 3.35e12) * 1e3
+        yield name, {"route": route, "chain": chain, "plain": plain,
+                     "bound": bound}
+        del x, pk, cpk
 
 
 def _ablated(repo: str, name: str) -> str:

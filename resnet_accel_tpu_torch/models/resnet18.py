@@ -34,10 +34,14 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
                     proof holds, as the JAX make_forward joins
       -> avgpool_global_int8 -> matmul_int8 (K3) -> x fc_deq
 
-  A trunk layer with BSR weights runs im2col_nchw -> bsr_matmul_wt (K4,
-  the zero-block skip, with bias, ReLU and requant fused) instead of K2 or
-  K7; a sparse c2 of a basic block or c3 of a bottleneck then joins its
-  residual with ``add_residual``.  The stem always runs dense (the pruner
+  A trunk layer with BSR weights runs the zero-block skip instead of K2 or
+  K7: in blocks of at most 16 x 16 (the reference's 14 x 14) one launch of
+  bsr_conv2d_int8 (K4's conv route: the patch gather, the stored blocks,
+  bias, ReLU, requant and a basic block's c2 or a bottleneck's c3 joined
+  to its residual); in larger blocks (128 x 128) im2col_nchw ->
+  bsr_matmul_wt (K4, with bias, ReLU and requant fused), a sparse c2 or
+  c3 then joining its residual with ``add_residual``.  The stem always
+  runs dense (the pruner
   never touches it).  Int8 images are taken as already quantized with
   ``s_input`` (the loader's work), as the JAX ``make_forward`` takes them;
   the CIFAR stem then only skips its quantize.
@@ -50,8 +54,8 @@ basic blocks (``QBlock``), 50, 101 and 152 bottlenecks (``QBottleneck``:
   ``runtime.profile.profile_resnet18`` (``stem``, ``b{i}.c1``,
   ``b{i}.c2`` with a basic block's join, ``b{i}.c3`` with a bottleneck's,
   ``b{i}.ds``, ``fc``) or ``pool`` (``runtime.xprof.scope``); a BSR
-  layer's scope holds ``im2col``, ``k4`` and, where it joins a residual,
-  ``join``.
+  layer's scope holds ``k4`` alone on the conv route, else ``im2col``,
+  ``k4`` and, where it joins a residual, ``join``.
 
 The numerical specification is the numpy golden ``forward_golden`` of the
 JAX package's module.
@@ -70,6 +74,8 @@ import torch.nn.functional as F
 from resnet_accel_tpu_torch.ops import (
     add_residual,
     avgpool_global_int8,
+    bsr_conv2d_int8,
+    bsr_conv2d_int8_plain,
     bsr_matmul_wt,
     bsr_matmul_wt_plain,
     conv2d_int8,
@@ -666,9 +672,12 @@ class Int8Conv(nn.Module):
     With a dense ``weight`` the conv runs through ``conv`` (K2), or, given
     ``expand``, as a bottleneck's 1x1 c3 joined to its residual through
     ``expand`` (K7); with ``weight=None`` the layer's BSR blocks are
-    uploaded instead and it runs im2col, then ``bsr`` (K4), and joins a
-    residual, if given, after, each in a scope of its own (``im2col``,
-    ``k4``, ``join``) inside the layer's."""
+    uploaded instead.  Blocks of at most 16 x 16 (packed with K4's conv
+    route's walk) then run through ``bsr_conv`` (K4's conv route),
+    the residual, if given, joined in the same launch, in a scope ``k4``
+    inside the layer's; larger blocks run im2col, then ``bsr`` (K4), and
+    join a residual, if given, after, each in a scope of its own
+    (``im2col``, ``k4``, ``join``)."""
 
     def __init__(self, qc: QConv, weight: Optional[torch.Tensor],
                  device: torch.device):
@@ -676,14 +685,16 @@ class Int8Conv(nn.Module):
         self.kernel, self.stride = qc.kernel, qc.stride
         self.padding, self.relu = qc.padding, qc.relu
         self.register_buffer("weight", weight)
-        self.packed = pack_bsr(qc.bsr, device) if weight is None else None
+        self.packed = (pack_bsr(qc.bsr, device, conv=True)
+                       if weight is None else None)
         self.register_buffer("bias", torch.from_numpy(
             np.asarray(qc.bias, np.int32)).to(device))
         self.register_buffer("factors", torch.from_numpy(
             np.asarray(qc.factors, np.float32)).to(device))
 
     def forward(self, x, conv=conv2d_int8, bsr=bsr_matmul_wt, residual=None,
-                res_scales=None, expand=None, inv_out=None):
+                res_scales=None, expand=None, inv_out=None,
+                bsr_conv=bsr_conv2d_int8):
         if self.packed is None:
             if expand is not None:
                 w = self.weight.reshape(self.weight.shape[0], -1)  # [O, C]
@@ -693,6 +704,12 @@ class Int8Conv(nn.Module):
                         stride=self.stride, padding=self.padding,
                         relu=self.relu, residual=residual,
                         res_scales=res_scales)
+        if self.packed.walk_images is not None:
+            with scope("k4"):
+                return bsr_conv(x, self.packed, self.bias, self.factors,
+                                kernel=self.kernel, stride=self.stride,
+                                padding=self.padding, relu=self.relu,
+                                residual=residual, res_scales=res_scales)
         N, _, H, W = x.shape
         Ho = (H + 2 * self.padding - self.kernel) // self.stride + 1
         Wo = (W + 2 * self.padding - self.kernel) // self.stride + 1
@@ -785,17 +802,18 @@ class ResNet18Int8Module(nn.Module):
         """The kernels on CUDA tensors, the plain versions on CPU ones."""
         return self._forward(x, stem_conv_pool, stem_conv_pool_int8,
                              quantize_s2d, conv2d_int8, matmul_int8,
-                             bsr_matmul_wt, expand_add_int8)
+                             bsr_matmul_wt, expand_add_int8, bsr_conv2d_int8)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch versions of every kernel, on any device."""
         return self._forward(x, stem_conv_pool_plain,
                              stem_conv_pool_int8_plain, quantize_s2d_nchw,
                              conv2d_int8_plain, matmul_int8_plain,
-                             bsr_matmul_wt_plain, expand_add_int8_plain)
+                             bsr_matmul_wt_plain, expand_add_int8_plain,
+                             bsr_conv2d_int8_plain)
 
     def _forward(self, x, stem, stem_int8, quant_s2d, conv, matmul, bsr,
-                 expand):
+                 expand, bsr_conv):
         int8_in = x.dtype == torch.int8
         st = self.stem
         cl = torch.channels_last
@@ -821,21 +839,22 @@ class ResNet18Int8Module(nn.Module):
                                                  self.res_scales,
                                                  self.inv_out)):
             with scope(f"b{i}.c1"):
-                y = convs["c1"](a, conv, bsr)
+                y = convs["c1"](a, conv, bsr, bsr_conv=bsr_conv)
             r = a
             if "ds" in convs:
                 with scope(f"b{i}.ds"):
-                    r = convs["ds"](a, conv, bsr)
+                    r = convs["ds"](a, conv, bsr, bsr_conv=bsr_conv)
             if "c3" in convs:  # a bottleneck: c2, then c3 with the join
                 with scope(f"b{i}.c2"):
-                    y = convs["c2"](y, conv, bsr)
+                    y = convs["c2"](y, conv, bsr, bsr_conv=bsr_conv)
                 with scope(f"b{i}.c3"):
                     a = convs["c3"](y, conv, bsr, residual=r, res_scales=rs,
-                                    expand=expand, inv_out=inv)
+                                    expand=expand, inv_out=inv,
+                                    bsr_conv=bsr_conv)
             else:
                 with scope(f"b{i}.c2"):
                     a = convs["c2"](y, conv, bsr, residual=r,
-                                    res_scales=rs)
+                                    res_scales=rs, bsr_conv=bsr_conv)
         with scope("pool"):
             a = avgpool_global_int8(a)
         with scope("fc"):

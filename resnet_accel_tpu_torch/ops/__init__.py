@@ -1,7 +1,12 @@
-"""The compute path: the kernel wrappers (K1-K8 and K10) with their plain
-versions, the int8 epilogues, pools and layout ops they share, and the
-gather-compact BSR product of the LM's projections."""
+"""The compute path: the kernel wrappers (K1-K8 and K10, and K4's conv
+route) with their plain versions, the int8 epilogues, pools and layout ops
+they share, and the gather-compact BSR product of the LM's projections."""
 
+from resnet_accel_tpu_torch.ops.bsr_conv import (
+    bsr_conv2d_int8,
+    bsr_conv2d_int8_plain,
+    bsr_conv_plan,
+)
 from resnet_accel_tpu_torch.ops.bsr_matmul import (
     GatherBSR,
     PackedBSR,
@@ -79,6 +84,9 @@ __all__ = [
     "PackedBSR",
     "add_residual",
     "avgpool_global_int8",
+    "bsr_conv2d_int8",
+    "bsr_conv2d_int8_plain",
+    "bsr_conv_plan",
     "bsr_matmul_wt",
     "bsr_matmul_wt_plain",
     "bsr_matmul_wt_xla",

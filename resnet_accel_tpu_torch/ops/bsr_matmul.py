@@ -93,6 +93,61 @@ def small_stages(bsr: BSRMatrix):
             stage_ptr.astype(np.int32), col.reshape(n_stages, 2))
 
 
+#: Block rows a CTA of K4's conv route walks at most: it keeps each one's
+#: sums in registers (``kMaxRows`` in ``csrc/bsr_conv.cu``).
+CONV_WALK_ROWS = 8
+
+
+def conv_walk(bsr: BSRMatrix):
+    """K4's conv route's walk of ``bsr`` (blocks of at most 16 x 16).
+
+    The block rows are cut into runs of ``rows``, the fewest runs of at
+    most :data:`CONV_WALK_ROWS` rows, as even as they go; a CTA walks one
+    run, column by column: every block column that a row of the run
+    stores, in order, with the mask of those rows, so that the kernel
+    gathers the column's window of the patch matrix once for all of them.
+
+    Returns ``(walk_ptr, walk_col, walk_img, rows)``: ``walk_ptr`` [runs +
+    1] int32, the columns of run q being ``walk_col[walk_ptr[q]:walk_ptr[q
+    + 1]]``; ``walk_col`` int32, each column * 256 + its mask (bit r: row
+    q * rows + r stores it); ``walk_img`` [nnz] int32, the stage image of
+    each stored block (2 * stage + half, in :func:`small_stages`' images),
+    by run, column and row, so that run q's images start at
+    ``row_ptr[q * rows]``."""
+    nbr = bsr.num_block_rows
+    rows = -(-nbr // -(-nbr // CONV_WALK_ROWS)) if nbr else 1
+    runs = -(-nbr // rows)
+    row_ptr = np.asarray(bsr.row_ptr, np.int64)
+    counts = np.diff(row_ptr)
+    nnz = int(row_ptr[-1])
+    row_of = np.repeat(np.arange(nbr), counts)
+    col = np.asarray(bsr.col_idx, np.int64)
+    stage_ptr = np.concatenate([[0], np.cumsum((counts + 1) // 2)])
+    slot = 2 * stage_ptr[row_of] + np.arange(nnz) - row_ptr[row_of]
+    run = row_of // rows
+    order = np.lexsort((row_of, col, run))     # by run, column, row
+    run, col, row_of = run[order], col[order], row_of[order]
+    first = np.ones(nnz, bool)
+    first[1:] = (run[1:] != run[:-1]) | (col[1:] != col[:-1])
+    starts = np.flatnonzero(first)
+    mask = (np.bitwise_or.reduceat(1 << (row_of - run * rows), starts)
+            if nnz else np.zeros(0, np.int64))
+    walk_ptr = np.searchsorted(run[starts], np.arange(runs + 1))
+    return (walk_ptr.astype(np.int32),
+            (col[starts] * 256 + mask).astype(np.int32),
+            slot[order].astype(np.int32), rows)
+
+
+def swizzle32(images: np.ndarray) -> np.ndarray:
+    """[n, 16, 32] block images -> [n, 512] bytes laid out as the 32-byte
+    swizzle puts a 16 x 32 tile in shared memory (the 16-byte half of each
+    row flipped in rows 4-7 and 12-15: address bit 4 XOR bit 7), the layout
+    ``wgmma``'s descriptors name (``sm90::smem_desc(..., 32, 3)``), so
+    that a linear copy of them needs no tensor map."""
+    q = np.arange(16 * SMALL_WINDOW)
+    return np.asarray(images).reshape(-1, q.size)[:, q ^ (((q >> 7) & 1) << 4)]
+
+
 @dataclasses.dataclass
 class PackedBSR:
     """A ``BSRMatrix`` of int8 blocks on a device, in the CSR layout the
@@ -100,7 +155,9 @@ class PackedBSR:
     ``blocks[row_ptr[br]:row_ptr[br + 1]]``, each [block_h, block_w] in
     the W[N, K] orientation, at block column ``col_idx[i]``.  Blocks of at
     most 16 x 16 also carry the small-block path's stages
-    (:func:`small_stages`); other blocks carry None there."""
+    (:func:`small_stages`), or, packed for a conv layer, K4's conv route's
+    walk of the same images (:func:`conv_walk`) instead; other blocks carry
+    None there."""
 
     blocks: torch.Tensor     # [nnz, block_h, block_w] int8
     row_ptr: torch.Tensor    # [n_padded / block_h + 1] int32
@@ -118,10 +175,19 @@ class PackedBSR:
     stage_ptr: Optional[torch.Tensor] = None  # [n_padded / block_h + 1]
     stage_col: Optional[torch.Tensor] = None  # [n_stages, 2] int32
     max_row_stages: int = 0  # the fullest block row's stages
+    # K4's conv route's walk (``pack_bsr(..., conv=True)``): the stage
+    # images in its order, swizzled (:func:`swizzle32`), then a zero image
+    walk_ptr: Optional[torch.Tensor] = None   # [runs + 1] int32
+    walk_col: Optional[torch.Tensor] = None   # [columns] int32
+    walk_images: Optional[torch.Tensor] = None  # [nnz + 1, 512] int8
+    walk_rows: int = 0       # block rows a run
 
 
-def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
-    """Upload an int8 ``BSRMatrix`` to ``device`` for :func:`bsr_matmul_wt`."""
+def pack_bsr(bsr: BSRMatrix, device, conv: bool = False) -> PackedBSR:
+    """Upload an int8 ``BSRMatrix`` to ``device`` for :func:`bsr_matmul_wt`,
+    or with ``conv`` for a conv layer: blocks of at most 16 x 16 then
+    carry K4's conv route's walk (``ops.bsr_conv2d_int8``) in place of the
+    small-block stages, which that route does not read."""
     if bsr.data.dtype != np.int8:
         raise ValueError("pack_bsr needs int8 blocks")
 
@@ -132,10 +198,21 @@ def pack_bsr(bsr: BSRMatrix, device) -> PackedBSR:
     small = {}
     if bsr.block_h <= SMALL_BLOCK and bsr.block_w <= SMALL_BLOCK:
         stages, stage_ptr, stage_col = small_stages(bsr)
-        small = dict(stages=put(stages, np.int8),
-                     stage_ptr=put(stage_ptr, np.int32),
-                     stage_col=put(stage_col, np.int32),
-                     max_row_stages=int(np.diff(stage_ptr).max(initial=0)))
+        if conv:
+            walk_ptr, walk_col, walk_img, rows = conv_walk(bsr)
+            images = swizzle32(stages.reshape(-1, SMALL_BLOCK,
+                                              SMALL_WINDOW)[walk_img])
+            small = dict(walk_ptr=put(walk_ptr, np.int32),
+                         walk_col=put(walk_col, np.int32),
+                         walk_images=put(np.vstack([images, np.zeros(
+                             (1, images.shape[1]), np.int8)]), np.int8),
+                         walk_rows=rows)
+        else:
+            small = dict(stages=put(stages, np.int8),
+                         stage_ptr=put(stage_ptr, np.int32),
+                         stage_col=put(stage_col, np.int32),
+                         max_row_stages=int(np.diff(stage_ptr).max(
+                             initial=0)))
     return PackedBSR(
         blocks=put(bsr.data, np.int8).reshape(-1, bsr.block_h, bsr.block_w),
         row_ptr=put(bsr.row_ptr, np.int32),

@@ -562,6 +562,131 @@ def test_bsr_matmul_small_cluster_split(cuda, monkeypatch, split):
                        dense)
 
 
+def _conv_route_case(rng, dev, N, C, O, H, k, s, blk, sparsity=0.7,
+                     counts=None, join=False, odd_residual=False):
+    """x [N, C, H, H] int8 channels-last, a [O, C*k*k] weight at blk x blk
+    blocks zeroed with probability ``sparsity`` (or ``counts[br]`` kept in
+    block row br) packed as BSR, bias, factors and, where ``join``, a
+    residual (its base one byte off an even address where
+    ``odd_residual``) with scales: the keywords of ``bsr_conv2d_int8``."""
+    from resnet_accel_tpu_torch.sparse import build_bsr_int8_direct
+    cl = torch.channels_last
+    K = C * k * k
+    W = _i8(rng, (O, K))
+    nbr, nbc = -(-O // blk), -(-K // blk)
+    keep = rng.random((nbr, nbc)) >= sparsity
+    if counts is not None:
+        keep[:] = False
+        for br, n in enumerate(counts):
+            keep[br, rng.choice(nbc, n, replace=False)] = True
+    W *= np.repeat(np.repeat(keep, blk, 0), blk, 1)[:O, :K]
+    pad = k // 2
+    Ho = (H + 2 * pad - k) // s + 1
+    x = torch.randint(-128, 128, (N, H, H, C), dtype=torch.int8,
+                      device=dev).permute(0, 3, 1, 2)
+    kw = dict(kernel=k, stride=s, padding=pad, relu=not join)
+    if join:
+        flat = torch.randint(-128, 128, (N * Ho * Ho * O + 1,),
+                             dtype=torch.int8, device=dev)
+        flat = flat[1:] if odd_residual else flat[:-1]
+        kw["residual"] = flat.view(N, Ho, Ho, O).permute(0, 3, 1, 2)
+        assert kw["residual"].is_contiguous(memory_format=cl)
+        kw["res_scales"] = tuple(float(v) for v in rng.uniform(
+            0.01, 0.05, 3).astype(np.float32))
+    return (x, ops.pack_bsr(build_bsr_int8_direct(W, blk), dev, conv=True),
+            _t(rng.integers(-3000, 3000, O).astype(np.int32), dev),
+            _t((rng.uniform(0.5, 1.5, O) * 0.4 / np.sqrt(K)).astype(
+                np.float32), dev), kw)
+
+
+def _conv_route(args, kw):
+    """One launch of K4's conv route on its variant, bit for bit its plain
+    version."""
+    variants = dict(_kernels.KERNELS["bsr_conv"].variants)
+    k4 = _kernels.launch_counts()["bsr_matmul"]
+    got = ops.bsr_conv2d_int8(*args, **kw)
+    torch.cuda.synchronize()
+    _variant_launched("bsr_conv", variants, "wgmma_gather")
+    assert _kernels.launch_counts()["bsr_matmul"] == k4
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = ops.bsr_conv2d_int8_plain(*args, **kw)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# K4's conv route at each of ResNet-18's 19 trunk convs at 224 x 224, 14 x
+# 14 blocks at 0.7, batches of 2 and of 128: 3 x 3 at stride 1 and 2, the
+# 1 x 1 stride-2 downsamples, C 64-512, O 64 (not a multiple of 14);
+# each c2 with and without the residual join.
+R18_CONVS = trunk_convs(18)
+
+
+@pytest.mark.parametrize("conv", R18_CONVS, ids=[c.name for c in R18_CONVS])
+@pytest.mark.parametrize("N", [2, 128])
+def test_bsr_conv_resnet18(cuda, conv, N):
+    rng = np.random.default_rng(N + conv.C + conv.O + conv.H + conv.kernel)
+    for join in sorted({False, conv.name.endswith(".c2")}):
+        x, packed, bias, f, kw = _conv_route_case(
+            rng, cuda, N, conv.C, conv.O, conv.H, conv.kernel, conv.stride,
+            14, join=join)
+        _conv_route((x, packed, bias, f), kw)
+
+
+# Odd, empty and one-block rows (O 64: the last row 8 high), 8 x 8 blocks
+# at a batch of 2 and of 128, C at 8- and 4-byte multiples (staged in 8-
+# and 4-byte copies), a tile of 5 x 5 images, a residual at an odd
+# address (byte stores), a weight that stores no block.
+@pytest.mark.parametrize("N,C,O,H,k,s,blk,sparsity,counts,join,odd", [
+    (2, 64, 64, 56, 3, 1, 14, None, (3, 0, 1, 2, 15), True, False),
+    (128, 64, 64, 56, 3, 1, 14, None, (3, 0, 1, 2, 15), True, False),
+    (2, 64, 64, 56, 3, 1, 8, 0.7, None, True, False),
+    (128, 128, 128, 28, 3, 2, 8, 0.7, None, False, False),
+    (128, 512, 512, 7, 3, 1, 8, 0.7, None, True, False),
+    (2, 256, 512, 14, 1, 2, 8, 0.7, None, False, False),
+    (3, 16, 30, 10, 3, 1, 14, 0.5, None, True, False),
+    (2, 12, 14, 7, 3, 1, 14, 0.3, None, False, False),
+    (5, 64, 20, 5, 3, 1, 8, 0.6, None, True, False),
+    (2, 64, 64, 28, 3, 1, 14, 0.7, None, True, True),
+    (2, 64, 64, 28, 3, 1, 14, 1.0, None, True, False)])
+def test_bsr_conv_shapes(cuda, N, C, O, H, k, s, blk, sparsity, counts, join,
+                         odd):
+    rng = np.random.default_rng(N + C + O + H + blk)
+    x, packed, bias, f, kw = _conv_route_case(
+        rng, cuda, N, C, O, H, k, s, blk, sparsity or 0.0, counts, join, odd)
+    _conv_route((x, packed, bias, f), kw)
+
+
+def test_bsr_conv_resnet18_forward(cuda):
+    """The 14 x 14 ResNet-18 at 64 x 64: each of its 19 convs one launch
+    of the conv route, K4 none; logits equal the plain path's, and the
+    same model at 128 x 128 blocks still runs K4."""
+    from resnet_accel_tpu_torch.models.resnet18 import (
+        ResNet18Int8Module, attach_bsr, init_resnet18_fp32,
+        prune_params_blockwise, quantize_resnet18)
+    rng = np.random.default_rng(5)
+    params = prune_params_blockwise(init_resnet18_fp32(seed=0,
+                                                       num_classes=10),
+                                    0.7, block=14)
+    model = quantize_resnet18(params, rng.normal(0, 1, (2, 3, 64, 64)).astype(
+        np.float32), 10)
+    x = _t(rng.normal(0, 1, (4, 3, 64, 64)).astype(np.float32), cuda)
+    for block, route in ((14, "bsr_conv"), (128, "bsr_matmul")):
+        mod = ResNet18Int8Module(attach_bsr(model, block=block,
+                                            min_sparsity=0.0,
+                                            layer_filter=lambda n: n != "stem"),
+                                 cuda)
+        with torch.inference_mode():
+            _kernels.reset_launch_counts()
+            got = mod(x)
+            torch.cuda.synchronize()
+            counts = _kernels.launch_counts()
+            other = "bsr_matmul" if route == "bsr_conv" else "bsr_conv"
+            assert counts[route] == 19 and counts[other] == 0, counts
+            if route == "bsr_conv":
+                assert _kernels.variant_counts()["bsr_conv"] == {
+                    "wgmma_gather": 19}
+            assert torch.equal(got, mod.forward_plain(x))
+
+
 # The four c3 shapes of ResNet-50 at batch 2 and at the served batch of
 # 128, a single pixel (M = 1), and C_in, C_out not multiples of 16 (the
 # mma_sync route, 4-byte copies) with a ragged M; each at scales with an

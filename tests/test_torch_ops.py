@@ -302,10 +302,17 @@ class TestDispatch:
         ops.stem_conv_pool_int8(torch.zeros((1, 3, 16, 16), dtype=torch.int8),
                                 _t(w.reshape(64, 3, 7, 7)), _t(bias), _t(f))
         ops.quantize_s2d(_t(x), scale)
+        small = ops.pack_bsr(build_bsr_int8_direct(np.random.default_rng(
+            9).integers(-128, 128, (64, 72)), 14), "cpu", conv=True)
+        ops.bsr_conv2d_int8(torch.zeros((1, 8, 4, 4), dtype=torch.int8),
+                            small, torch.zeros(64, dtype=torch.int32),
+                            torch.ones(64), kernel=3, stride=1, padding=1,
+                            relu=True)
         assert _kernels.launch_counts() == {
             "stem_fused": 0, "conv_int8": 0, "matmul_int8": 0,
             "bsr_matmul": 0, "expand_add": 0, "flash_attention": 0,
-            "sparse_conv": 0, "stem_int8": 0, "stem_pack": 0}
+            "sparse_conv": 0, "stem_int8": 0, "stem_pack": 0,
+            "bsr_conv": 0}
 
     def test_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))

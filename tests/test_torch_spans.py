@@ -3,10 +3,12 @@
 ``InferenceEngine.stream`` opens ``engine.fill`` for each batch's fill of
 its staging ring (``engine.ring_wait`` inside it where the ring waits on
 an event) and ``engine.drain`` for each call's end, never around a layer's
-scope; a block-sparse layer's scope holds ``im2col``, ``k4`` and, where
-it joins a residual, ``join``; the layer keys of ``xprof.by_scope`` stay
-the profile's rows and ``pool``.  All on the CPU, over a small CIFAR
-ResNet-18 block-pruned at 64 x 64.
+scope; a block-sparse layer's scope holds ``k4`` alone where its blocks
+are at most 16 x 16 (K4's conv route, one launch), else ``im2col``,
+``k4`` and, where it joins a residual, ``join``; the layer keys of
+``xprof.by_scope`` stay the profile's rows and ``pool``.  All on the CPU,
+over a small CIFAR ResNet-18 block-pruned at 64 x 64, its BSR attached at
+64 x 64 and at 14 x 14.
 """
 
 import json
@@ -35,7 +37,8 @@ def _models():
     calib = np.random.default_rng(0).normal(
         0, 1, (1, 3, 32, 32)).astype(np.float32)
     dense = quantize_resnet(fp32, calib, 18, 10, small_input=True)
-    return {"dense": dense, "sparse": P.attach_bsr(dense, block=64)}
+    return {"dense": dense, "sparse": P.attach_bsr(dense, block=64),
+            "sparse14": P.attach_bsr(dense, block=14)}
 
 
 @pytest.fixture(scope="module")
@@ -63,16 +66,29 @@ def _paths(fn, tmp):
 
 
 @pytest.fixture(scope="module")
-def stream_paths(models, tmp_path_factory):
-    model = models["sparse"]
-    eng = InferenceEngine(model, device="cpu")
-    loader = QuantizingLoader(_images(BATCH * N_BATCHES), model.s_input,
-                              BATCH)
+def paths_of(models, tmp_path_factory):
+    """The scope paths of ``CALLS`` streams of the model ``kind``, each
+    profiled once."""
+    cache = {}
 
-    def serve():
-        for _ in range(CALLS):
-            eng.stream(loader, N_BATCHES)
-    return _paths(serve, tmp_path_factory.mktemp("stream"))
+    def get(kind):
+        if kind not in cache:
+            model = models[kind]
+            eng = InferenceEngine(model, device="cpu")
+            loader = QuantizingLoader(_images(BATCH * N_BATCHES),
+                                      model.s_input, BATCH)
+
+            def serve():
+                for _ in range(CALLS):
+                    eng.stream(loader, N_BATCHES)
+            cache[kind] = _paths(serve, tmp_path_factory.mktemp("stream"))
+        return cache[kind]
+    return get
+
+
+@pytest.fixture(scope="module")
+def stream_paths(paths_of):
+    return paths_of("sparse")
 
 
 def _layer_scopes(model):
@@ -99,9 +115,15 @@ def test_no_engine_span_encloses_a_layer_scope(models, stream_paths):
         "engine.fill", "engine.drain"}
 
 
-def test_bsr_layer_scopes_hold_im2col_k4_and_join(models, stream_paths):
-    sparse = set(models["sparse"].sparsity_report())
+@pytest.mark.parametrize("kind", ["sparse", "sparse14"])
+def test_bsr_layer_scopes_hold_im2col_k4_and_join(models, paths_of, kind):
+    model = models[kind]
+    sparse = set(model.sparsity_report())
     assert sparse and "stem" not in sparse
+    small = {qc.bsr.block_h for _, qc in model.named_convs()
+             if qc.bsr is not None} == {14}
+    assert small == (kind == "sparse14")
+    stream_paths = paths_of(kind)
     inner = {}
     for p in stream_paths:
         head, _, leaf = p.partition("/")
@@ -109,9 +131,10 @@ def test_bsr_layer_scopes_hold_im2col_k4_and_join(models, stream_paths):
             inner.setdefault(head, set()).add(leaf)
     assert set(inner) == sparse
     for name, leaves in inner.items():
-        # a basic block's c2 joins the residual; c1 and ds do not
-        want = {"im2col", "k4"} | ({"join"} if name.endswith(".c2")
-                                   else set())
+        # K4's conv route joins in its one launch; on the chain a basic
+        # block's c2 joins the residual, c1 and ds do not
+        want = {"k4"} if small else {"im2col", "k4"} | (
+            {"join"} if name.endswith(".c2") else set())
         assert leaves == want, name
     n_forwards = CALLS * N_BATCHES
     assert stream_paths.count("b0.c1/k4") == n_forwards
